@@ -2,13 +2,27 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the serving path from ``wsiseg_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card, drives
-``python -m wsiseg_tpu_torch eval-tumorbed`` end to end, compares a small
-slide's labels between the kernel path (GPU) and the plain path (CPU),
-and serves three bench-geometry slides (4096×3072 at level 2, resnet18
-Unet, 4 classes, bf16) through ``predict_tumorbed``. Weights are random,
-drawn from a seeded ``torch.Generator``.
+Builds every CUDA kernel from ``wsiseg_tpu_torch/csrc`` (one ``nvcc`` per
+source, all started together) and holds each against its plain PyTorch
+version on the card at the serving path's shapes and batches and at a
+ragged shape:
+the two stem modes (K1 ``stem_pool_conv``, K2 ``stem_conv``) and the 3×3
+conv kernel as ``conv9`` (K3), ``conv_chain`` (K4) and ``conv3x3_small``
+(K5). Then it drives the port's paths with every launch count set to 0
+just before and read just after:
+
+- ``python -m wsiseg_tpu_torch eval-tumorbed`` on two small slides (default
+  route), then a small slide's labels and heat, kernels (GPU) against
+  plain versions (CPU), on the default and the fold route, and fold
+  against default on the GPU;
+- ``predict_tumorbed`` on three bench-geometry slides (4096×3072 at level
+  2, resnet18 Unet, 4 classes, bf16) on the default route, and on two with
+  ``engine.fcn_fold = True``, each with ``device_throughput``;
+- ``decode_fold(use_chain=True)`` at bench geometry (the chain kernel);
+- ``conv3x3_small`` at its documented head shape (the kernel has no
+  caller in the serving path; its phase is its path).
+
+Weights are random, drawn from a seeded ``torch.Generator``.
 
 Prints one line per phase, then a JSON line of per-kernel results, the
 card's ``nvidia-smi`` name and power limit, and as the last line
@@ -27,33 +41,32 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from PIL import Image
+
+from wsiseg_tpu_torch.data.bench_slide import level2_image
 
 BENCH_HW = (3072, 4096)          # level-2 (H, W) of the bench geometry
 RAGGED_HW = (96, 256)
 GROUP = 4                        # slides per stem launch in the group case
-STEM_TOL = 2.0 ** -7             # one bf16 ulp, relative
+SERVE_IN_FLIGHT = 2              # slides per launch in the serve phases
+TOL = 2.0 ** -7                  # one bf16 ulp, relative
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
+BF16_FLOP_PER_S = 989e12         # dense bf16 tensor cores, same source
+MEAN = (0.485, 0.456, 0.406)
+STD = (0.229, 0.224, 0.225)
 
-
-def level2_image(height: int, width: int, seed: int) -> np.ndarray:
-    """Tissue-like level-2 image with dense foreground (bench.py's
-    synthetic slide: 40 purple blobs on 244-white plus ±15 noise)."""
-    rng = np.random.RandomState(seed)
-    img = np.full((height, width, 3), 244, dtype=np.uint8)
-    for _ in range(40):
-        cy, cx = rng.randint(0, height), rng.randint(0, width)
-        ry = rng.randint(height // 12, height // 4)
-        rx = rng.randint(width // 12, width // 4)
-        y0, y1 = max(0, cy - ry), min(height, cy + ry + 1)
-        x0, x1 = max(0, cx - rx), min(width, cx + rx + 1)
-        yy, xx = np.mgrid[y0:y1, x0:x1]
-        blob = (((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2) <= 1.0
-        color = np.array([120 + rng.randint(-30, 30),
-                          40 + rng.randint(-20, 40),
-                          150 + rng.randint(-30, 40)])
-        img[y0:y1, x0:x1][blob] = np.clip(color, 0, 255).astype(np.uint8)
-    noise = rng.randint(-15, 15, size=img.shape).astype(np.int16)
-    return np.clip(img.astype(np.int16) + noise, 0, 255).astype(np.uint8)
+# the fold decoder's layer groups at 3072×4096: (name, H, W, [Cin, Cout
+# per layer...], last layer's ReLU, output dtype)
+FOLD_GROUPS = [
+    ("block0", 192, 256, [768, 256, 256], True, torch.bfloat16),
+    ("block1", 384, 512, [384, 128, 128], True, torch.bfloat16),
+    ("block2", 384, 512, [384, 256, 256], True, torch.bfloat16),
+    ("block3", 768, 1024, [320, 128, 128], True, torch.bfloat16),
+    ("block4+head", 1536, 2048, [32, 64, 64, 16], False, torch.float32),
+]
+RAGGED_CHAIN = ("ragged", 83, 131, [32, 64, 64, 16], False, torch.float32)
+HEAD_SHAPE = (1664, 2176, 64, 16)     # pallas_conv.py's documented shape
 
 
 def cuda_ms(fn, iters: int = 20) -> float:
@@ -72,6 +85,35 @@ def cuda_ms(fn, iters: int = 20) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """Least time the card could take: the larger of the bytes over HBM
+    rate and the operations over the bf16 tensor-core peak."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return {"bound_ms": 1e3 * max(t_b, t_f),
+            "bound_by": "bytes" if t_b >= t_f else "operations"}
+
+
+def reset_counts() -> None:
+    from wsiseg_tpu_torch.ops import conv9, stem
+    stem.LAUNCHES = 0
+    stem.STEM_CONV_LAUNCHES = 0
+    for k in conv9.LAUNCHES:
+        conv9.LAUNCHES[k] = 0
+
+
+def read_counts() -> dict:
+    from wsiseg_tpu_torch.ops import conv9, stem
+    return {"stem_pool_conv": stem.LAUNCHES,
+            "stem_conv": stem.STEM_CONV_LAUNCHES, **conv9.LAUNCHES}
+
+
+def assert_close(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """rtol 2^-7, atol 2^-7·max|ref|; returns max|got - ref|."""
+    g, r = got.float(), ref.float()
+    torch.testing.assert_close(g, r, rtol=TOL, atol=TOL * r.abs().max().item())
+    return (g - r).abs().max().item()
 
 
 def phase_identify() -> str:
@@ -93,22 +135,41 @@ def phase_build() -> None:
     print(f"[2] built {lib.name} in {time.time() - t0:.2f} s", flush=True)
 
 
-def phase_stem(dev) -> dict:
-    """K1 against its plain version on the card: one bench-geometry slide,
-    a group of GROUP different slides in one launch, and a ragged size."""
-    from wsiseg_tpu.config import default_config
+def _stem_weights(dev):
     from wsiseg_tpu_torch.ops import stem
-
-    cfg = default_config()
     r = np.random.RandomState(0)
     kernel = torch.from_numpy(r.randn(64, 3, 7, 7).astype(np.float32) * 0.05)
     vecs = [torch.from_numpy(v.astype(np.float32)) for v in (
         r.rand(64) + 0.5, r.randn(64) * 0.1, r.randn(64) * 0.1,
         r.rand(64) + 0.5)]
-    w, b = stem.fold_stem_weights(kernel.to(dev), *(v.to(dev) for v in vecs),
-                                  cfg.dataset_mean, cfg.dataset_std)
-    pad = stem.pad_value(cfg.dataset_mean)
-    out = {}
+    return stem.fold_stem_weights(kernel.to(dev), *(v.to(dev) for v in vecs),
+                                  MEAN, STD)
+
+
+def _stem_library_call(x: torch.Tensor, w, b, pad):
+    """The yardstick: one bf16 channels_last ``F.conv2d`` of the stem's
+    7×7/2 conv (+ bias) on the pre-padded image; normalize is folded into
+    the weights, the u8 → bf16 cast and ReLU/pool are not in it."""
+    n, h, wd, _ = x.shape
+    canvas = torch.tensor(pad, dtype=torch.bfloat16, device=x.device).view(
+        1, 3, 1, 1).repeat(n, 1, h + 6, wd + 6)
+    canvas[:, :, 3:3 + h, 3:3 + wd] = x.permute(0, 3, 1, 2)
+    canvas = canvas.contiguous(memory_format=torch.channels_last)
+    k = w.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    bb = b.to(torch.bfloat16)
+    return lambda: F.conv2d(canvas, k, bb, stride=2)
+
+
+def phase_stems(dev) -> dict:
+    """K1 and K2 against their plain versions on the card: one
+    bench-geometry slide, a group of GROUP different slides in one launch,
+    and a ragged size."""
+    from wsiseg_tpu_torch.ops import stem
+
+    w, b = _stem_weights(dev)
+    pad = stem.pad_value(MEAN)
+    r = np.random.RandomState(0)
     # the group is what one launch gets under the CLI's default
     # --slides_in_flight 4
     group = [level2_image(*BENCH_HW, seed=1 + k) for k in range(GROUP)]
@@ -117,38 +178,188 @@ def phase_stem(dev) -> dict:
         "bench_group": group,
         "ragged": [r.randint(0, 256, (*RAGGED_HW, 3)).astype(np.uint8)],
     }
-    for name, imgs in cases.items():
+    kernels = {"stem_pool_conv": (stem.stem_pool_conv,
+                                  stem.stem_pool_conv_ref),
+               "stem_conv": (stem.stem_conv, stem.stem_conv_ref)}
+    out = {name: {} for name in kernels}
+    for case, imgs in cases.items():
         x = torch.from_numpy(np.stack(imgs)).to(dev)
         n, h, wd = x.shape[:3]
-        got = stem.stem_pool_conv(x, w, b, pad)
-        ref = stem.stem_pool_conv_ref(x, w, b, pad)
-        torch.cuda.synchronize()
-        err = 0.0
-        for g, rf in zip(got, ref):
-            g, rf = g.float(), rf.float()
-            amax = rf.abs().max().item()
-            torch.testing.assert_close(g, rf, rtol=STEM_TOL,
-                                       atol=STEM_TOL * amax)
-            err = max(err, (g - rf).abs().max().item())
-        ms = cuda_ms(lambda: stem.stem_pool_conv(x, w, b, pad))
-        plain_ms = cuda_ms(lambda: stem.stem_pool_conv_ref(x, w, b, pad))
-        print(f"[3] stem {name} {n}x{h}x{wd}: max|d| {err:.6g} (tol "
-              f"{STEM_TOL:.6g}·max|ref|), kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms", flush=True)
-        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        for name, (kern, ref) in kernels.items():
+            got, want = kern(x, w, b, pad), ref(x, w, b, pad)
+            torch.cuda.synchronize()
+            if name == "stem_conv":
+                got, want = [got], [want]
+            err = max(assert_close(g, rf) for g, rf in zip(got, want))
+            ms = cuda_ms(lambda: kern(x, w, b, pad))
+            plain_ms = cuda_ms(lambda: ref(x, w, b, pad))
+            lib_ms = cuda_ms(_stem_library_call(x, w, b, pad))
+            print(f"[3] {name} {case} {n}x{h}x{wd}: max|d| {err:.6g} (tol "
+                  f"{TOL:.6g}·max|ref|), kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, F.conv2d {lib_ms:.4f} ms",
+                  flush=True)
+            out[name][case] = {"max_abs_err": err, "ms": ms,
+                               "plain_ms": plain_ms, "library_ms": lib_ms}
+    # bound of one bench slide: u8 image in, weights, outputs out
+    h, wd = BENCH_HW
+    flops = 2.0 * (h // 2) * (wd // 2) * 147 * 64
+    inb = h * wd * 3 + 147 * 64 * 2 + 64 * 4
+    c1b = (h // 2) * (wd // 2) * 64 * 2
+    out["stem_pool_conv"]["bound"] = bound(flops, inb + c1b + c1b / 4)
+    out["stem_conv"]["bound"] = bound(flops, inb + c1b)
     return out
 
 
-def phase_cli(dev, tmp: str) -> int:
-    """The eval-tumorbed CLI on two .npy slides, then the GPU (kernel)
-    vs CPU (plain) labels of one of them."""
-    from wsiseg_tpu.config import default_config
-    from wsiseg_tpu.slides import ArraySlide
+def _layers(rng, chans, last_relu, dev):
+    from wsiseg_tpu_torch.ops import conv9
+    layers = []
+    for i, (ci, co) in enumerate(zip(chans[:-1], chans[1:])):
+        k = torch.from_numpy(rng.randn(3, 3, ci, co).astype(np.float32)
+                             * np.sqrt(2.0 / (9 * ci)))
+        s = torch.from_numpy(rng.rand(co).astype(np.float32) + 0.5)
+        b = torch.from_numpy(rng.randn(co).astype(np.float32) * 0.1)
+        w, bb = conv9.prep_layer(k.to(dev), s.to(dev), b.to(dev))
+        layers.append((w, bb, True if i + 2 < len(chans) else last_relu))
+    return layers
+
+
+def _conv_library_call(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """The yardstick: one bf16 channels_last ``F.conv2d`` of the same conv
+    (+ bias; the ReLU is not in it)."""
+    cout, _, cin = w.shape
+    xn = x.permute(0, 3, 1, 2)                    # channels_last view
+    k = w.view(cout, 3, 3, cin).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    bb = b.to(torch.bfloat16)
+    return lambda: F.conv2d(xn, k, bb, padding=1)
+
+
+def _conv_cost(h, w, chans, out_bytes, n=1):
+    """(flops, bytes) of a chain: input read once, weights, last output."""
+    flops = sum(2.0 * n * h * w * 9 * ci * co
+                for ci, co in zip(chans[:-1], chans[1:]))
+    wbytes = sum(9 * ci * co * 2 + co * 4
+                 for ci, co in zip(chans[:-1], chans[1:]))
+    return flops, n * h * w * chans[0] * 2 + wbytes \
+        + n * h * w * chans[-1] * out_bytes
+
+
+def phase_convs(dev) -> dict:
+    """K3 (each fold layer alone), K4 (each fold group as one chain) and
+    K5 (the documented head shape) against their plain versions, at bench
+    geometry and at a ragged shape, with kernel, plain and F.conv2d
+    times; K3 and K4 again on a batch of SERVE_IN_FLIGHT slides per fold
+    group, the batch the fold serve phase launches them on."""
+    from wsiseg_tpu_torch.ops import conv9
+
+    rng = np.random.RandomState(1)
+    acc = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+               "library_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+           for k in ("conv9", "conv_chain", "conv3x3_small")}
+
+    def add(name, err, ms, plain_ms, lib_ms, cost, bench):
+        if bench:
+            for k, v in zip(("ms", "plain_ms", "library_ms", "flops",
+                             "bytes"), (ms, plain_ms, lib_ms, *cost)):
+                acc[name][k] += v
+        acc[name]["max_abs_err"] = max(acc[name]["max_abs_err"], err)
+
+    for gname, h, w, chans, last_relu, od in FOLD_GROUPS + [RAGGED_CHAIN]:
+        bench = gname != "ragged"
+        x = torch.from_numpy(rng.randn(1, h, w, chans[0]).astype(
+            np.float32)).to(dev).to(torch.bfloat16)
+        layers = _layers(rng, chans, last_relu, dev)
+        got = conv9.conv_chain(x, layers, od)
+        err = assert_close(got, conv9.conv_chain_ref(x, layers, od))
+        ms = cuda_ms(lambda: conv9.conv_chain(x, layers, od))
+        plain_ms = cuda_ms(lambda: conv9.conv_chain_ref(x, layers, od))
+        lib = [_conv_library_call(
+            x if i == 0 else torch.zeros(1, h, w, chans[i], device=dev,
+                                         dtype=torch.bfloat16), wl, bl)
+            for i, (wl, bl, _) in enumerate(layers)]
+        lib_ms = sum(cuda_ms(f) for f in lib)
+        cost = _conv_cost(h, w, chans, 4 if od == torch.float32 else 2)
+        add("conv_chain", err, ms, plain_ms, lib_ms, cost, bench)
+        print(f"[4] conv_chain {gname} {h}x{w} {chans}: max|d| {err:.6g}, "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.conv2d sum "
+              f"{lib_ms:.4f} ms, bound "
+              f"{bound(*cost)['bound_ms']:.4f} ms", flush=True)
+        # K3: each layer alone, on its own input (the group input for the
+        # first layer, the chain's bf16 intermediate after that)
+        xi = x
+        for i, (wl, bl, relu) in enumerate(layers):
+            last = i + 1 == len(layers)
+            odi = od if last else torch.bfloat16
+            got = conv9.conv9(xi, wl, bl, relu, odi)
+            want = conv9.conv9_ref(xi, wl, bl, relu, odi)
+            err = assert_close(got, want)
+            ms = cuda_ms(lambda: conv9.conv9(xi, wl, bl, relu, odi))
+            plain_ms = cuda_ms(lambda: conv9.conv9_ref(xi, wl, bl, relu, odi))
+            lib_ms = cuda_ms(_conv_library_call(xi, wl, bl))
+            cost = _conv_cost(h, w, chans[i:i + 2],
+                              4 if odi == torch.float32 else 2)
+            add("conv9", err, ms, plain_ms, lib_ms, cost, bench)
+            print(f"[4] conv9 {gname}.{i} {h}x{w} {chans[i]}->"
+                  f"{chans[i + 1]}: max|d| {err:.6g}, kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, F.conv2d {lib_ms:.4f} ms, bound "
+                  f"{bound(*cost)['bound_ms']:.4f} ms", flush=True)
+            if not last:
+                xi = got
+        if not bench:
+            continue
+        # the fold serve phase's slide group: SERVE_IN_FLIGHT different
+        # slides in one launch of each kernel
+        xb = torch.from_numpy(rng.randn(SERVE_IN_FLIGHT, h, w, chans[0])
+                              .astype(np.float32)).to(dev).to(torch.bfloat16)
+        errs = {"conv_chain": [assert_close(
+            conv9.conv_chain(xb, layers, od),
+            conv9.conv_chain_ref(xb, layers, od))], "conv9": []}
+        for i, (wl, bl, relu) in enumerate(layers):
+            odi = od if i + 1 == len(layers) else torch.bfloat16
+            got = conv9.conv9(xb, wl, bl, relu, odi)
+            errs["conv9"].append(assert_close(
+                got, conv9.conv9_ref(xb, wl, bl, relu, odi)))
+            xb = got
+        for name, e in errs.items():
+            add(name, max(e), 0.0, 0.0, 0.0, (0.0, 0.0), False)
+        print(f"[4] {gname} at N={SERVE_IN_FLIGHT}: conv_chain max|d| "
+              f"{errs['conv_chain'][0]:.6g}, conv9 max|d| per layer "
+              f"{[float(f'{e:.6g}') for e in errs['conv9']]}", flush=True)
+    for hname, (h, w, ci, co) in (("head", HEAD_SHAPE),
+                                   ("ragged", (37, 45, 40, 70))):
+        x = torch.from_numpy(rng.randn(1, h, w, ci).astype(np.float32)).to(
+            dev).to(torch.bfloat16)
+        k = torch.from_numpy(rng.randn(3, 3, ci, co).astype(np.float32)
+                             / np.sqrt(9 * ci)).to(dev)
+        b = torch.from_numpy(rng.randn(co).astype(np.float32)).to(dev)
+        err = assert_close(conv9.conv3x3_small(x, k, b),
+                           conv9.conv3x3_small_ref(x, k, b))
+        ms = cuda_ms(lambda: conv9.conv3x3_small(x, k, b))
+        plain_ms = cuda_ms(lambda: conv9.conv3x3_small_ref(x, k, b))
+        w9, b9 = conv9.prep_layer(k, None, b)
+        lib_ms = cuda_ms(_conv_library_call(x, w9, b9))
+        cost = _conv_cost(h, w, [ci, co], 4)
+        add("conv3x3_small", err, ms, plain_ms, lib_ms, cost,
+            hname == "head")
+        print(f"[4] conv3x3_small {hname} {h}x{w} {ci}->{co}: max|d| "
+              f"{err:.6g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"F.conv2d {lib_ms:.4f} ms, bound "
+              f"{bound(*cost)['bound_ms']:.4f} ms", flush=True)
+    for v in acc.values():
+        v.update(bound(v.pop("flops"), v.pop("bytes")))
+    return acc
+
+
+def phase_cli(dev, tmp: str) -> None:
+    """The eval-tumorbed CLI on two .npy slides, then one slide's labels
+    and heat: GPU (kernels) against CPU (plain versions) on the default
+    and the fold route, and fold against default on the GPU."""
     from wsiseg_tpu_torch.__main__ import main
+    from wsiseg_tpu_torch.config import default_config
     from wsiseg_tpu_torch.data.wsi_tiles import plan_slide
     from wsiseg_tpu_torch.infer.engine import DenseInferenceEngine
     from wsiseg_tpu_torch.models.ynet import init_ynet
-    from wsiseg_tpu_torch.ops import stem
+    from wsiseg_tpu_torch.slides import ArraySlide
     from wsiseg_tpu_torch.train.state import save_checkpoint
 
     # 256-px tiles: the reference tile grid (which only sets num_tiles
@@ -165,11 +376,11 @@ def phase_cli(dev, tmp: str) -> int:
     save_checkpoint(model, ckpt, cfg.arch_encoder, 0)
     out_dir = os.path.join(tmp, "out")
 
-    stem.LAUNCHES = 0
+    reset_counts()
     res = main(["eval-tumorbed", "--raw_val_pth", slides_dir,
                 "--eval_model_pth", ckpt, "--val_save_pth", out_dir,
                 "--wsi_mask_pth", "", "--tile_w", "256", "--tile_h", "256"])
-    launches = stem.LAUNCHES
+    launches = read_counts()["stem_pool_conv"]
     assert launches > 0, "CLI run never launched the stem kernel"
     assert sorted(res) == ["s0.npy", "s1.npy"], sorted(res)
     for rec in res.values():
@@ -179,51 +390,70 @@ def phase_cli(dev, tmp: str) -> int:
 
     slide = ArraySlide(np.load(os.path.join(slides_dir, "s0.npy")))
     plan = plan_slide("s0", slide, cfg)
-    gpu = DenseInferenceEngine(model, cfg, device=dev).predict_slide_fcn(plan)
-    cpu_model = init_ynet(cfg, torch.Generator().manual_seed(0))
-    cpu = DenseInferenceEngine(cpu_model, cfg,
-                               device="cpu").predict_slide_fcn(plan)
-    agree = float((gpu.labels == cpu.labels).mean())
-    heat_ok = float((np.abs(gpu.heatmap - cpu.heatmap)
-                     <= 2 / 255 + 1e-6).mean())
-    print(f"[4] CLI: 2 slides, heatmaps (384, 512), {launches} stem "
-          f"launches; GPU-vs-CPU labels agree {agree:.6f}, heat "
-          f"|d|<=2/255 on {heat_ok:.6f}", flush=True)
-    assert agree >= 0.99, agree
-    assert heat_ok >= 0.99, heat_ok
-    return launches
+    gpu = DenseInferenceEngine(model, cfg, device=dev)
+    cpu = DenseInferenceEngine(init_ynet(cfg, torch.Generator().manual_seed(
+        0)), cfg, device="cpu")
+    out = {}
+    for route in ("default", "fold"):
+        gpu.fcn_fold = cpu.fcn_fold = route == "fold"
+        out[route] = gpu.predict_slide_fcn(plan), cpu.predict_slide_fcn(plan)
+
+    def agree(a, b):
+        return (float((a.labels == b.labels).mean()),
+                float((np.abs(a.heatmap - b.heatmap) <= 2 / 255 + 1e-6)
+                      .mean()))
+
+    pairs = {"default GPU-vs-CPU": out["default"],
+             "fold GPU-vs-CPU": out["fold"],
+             "fold-vs-default GPU": (out["fold"][0], out["default"][0])}
+    msg = []
+    for name, (a, b) in pairs.items():
+        lab, heat = agree(a, b)
+        msg.append(f"{name} labels {lab:.6f} heat<=2/255 {heat:.6f}")
+        assert lab >= 0.99 and heat >= 0.99, (name, lab, heat)
+    print(f"[5] CLI: 2 slides, heatmaps (384, 512), {launches} stem "
+          f"launches; " + "; ".join(msg), flush=True)
 
 
-def phase_serve(dev, tmp: str) -> int:
-    """predict_tumorbed on three bench-geometry slides, two in flight."""
-    from wsiseg_tpu.config import default_config
-    from wsiseg_tpu.slides import VirtualPyramidSlide
+def phase_serve(dev, tmp: str, fold: bool, n_slides: int) -> dict:
+    """predict_tumorbed on bench-geometry slides, two in flight, on the
+    default or the fold route; then device_throughput with 1 and 2 slides
+    in flight."""
+    from wsiseg_tpu_torch.config import default_config
     from wsiseg_tpu_torch.data.wsi_tiles import SlideCollection
     from wsiseg_tpu_torch.infer import writers
     from wsiseg_tpu_torch.infer.engine import DenseInferenceEngine
     from wsiseg_tpu_torch.infer.evaluators import predict_tumorbed
     from wsiseg_tpu_torch.models.ynet import init_ynet
-    from wsiseg_tpu_torch.ops import stem
+    from wsiseg_tpu_torch.slides import VirtualPyramidSlide
 
+    route = "fold" if fold else "default"
     h, w = BENCH_HW
-    cfg = default_config(val_save_pth=os.path.join(tmp, "serve"),
+    cfg = default_config(val_save_pth=os.path.join(tmp, f"serve_{route}"),
                          wsi_mask_pth="")
-    images = [level2_image(h, w, seed=20 + k) for k in range(3)]
+    images = [level2_image(h, w, seed=20 + k) for k in range(n_slides)]
     slides = [(f"bench{k}", VirtualPyramidSlide({2: img}, num_levels=3))
               for k, img in enumerate(images)]
     coll = SlideCollection(slides, cfg)
-    assert len(coll) == 3
+    assert len(coll) == n_slides
     engine = DenseInferenceEngine(
         init_ynet(cfg, torch.Generator().manual_seed(0)), cfg, device=dev)
-    engine.slides_in_flight = 2
+    engine.slides_in_flight = SERVE_IN_FLIGHT
+    engine.fcn_fold = fold
 
-    stem.LAUNCHES = 0
+    reset_counts()
     t0 = time.time()
     res = predict_tumorbed(engine, coll, ep=0, log=lambda s: None)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = stem.LAUNCHES
-    assert launches > 0, "serving never launched the stem kernel"
+    counts = read_counts()
+    if fold:
+        assert counts["stem_conv"] > 0, "fold route never launched stem_conv"
+        assert counts["conv9"] > 0, "fold route never launched conv9"
+        assert counts["stem_pool_conv"] == 0, counts
+    else:
+        assert counts["stem_pool_conv"] > 0, \
+            "serving never launched the stem kernel"
     means = []
     for rec in res.values():
         hm = np.asarray(Image.open(rec["heatmap"]))
@@ -238,17 +468,78 @@ def phase_serve(dev, tmp: str) -> int:
     plan = next(iter(coll.items()))[1]
     one = engine.device_throughput(plan, mode="fcn", iters=3)
     two = engine.device_throughput(plan, mode="fcn", iters=3,
-                                   slides_in_flight=2)
-    print(f"[5] served 3 slides {w}x{h} in {wall:.3f} s "
-          f"({wall / 3:.4f} s/slide incl. first-call set-up; per-slide "
-          f"{[round(r['seconds'], 4) for r in res.values()]}), stem "
-          f"launches {launches}, mean heat u8 {[round(m, 3) for m in means]}"
-          f"; PNG writers {png_s:.4f} s/slide"
+                                   slides_in_flight=SERVE_IN_FLIGHT)
+    print(f"[6] {route} route: served {n_slides} slides {w}x{h} in "
+          f"{wall:.3f} s ({wall / n_slides:.4f} s/slide incl. first-call "
+          f"set-up; per-slide {[round(r['seconds'], 4) for r in res.values()]}"
+          f"), launches {counts}, mean heat u8 "
+          f"{[round(m, 3) for m in means]}; PNG writers {png_s:.4f} s/slide"
           f"; device_throughput fcn: 1 slide {one['sec_per_slide']:.5f} "
           f"s/slide ({one['patches_per_sec']:.1f} p/s), 2 in flight "
           f"{two['sec_per_slide']:.5f} s/slide "
           f"({two['patches_per_sec']:.1f} p/s)", flush=True)
-    return launches
+    return counts
+
+
+def phase_fold_chain(dev) -> dict:
+    """decode_fold(use_chain=True) on one bench-geometry slide's encoder
+    features: five conv_chain launches, and the same logits as the conv9
+    route within 2^-7·max|ref|."""
+    from wsiseg_tpu_torch.config import default_config
+    from wsiseg_tpu_torch.models.fast_decoder import decode_fold
+    from wsiseg_tpu_torch.models.fast_encoder import encode_stages
+    from wsiseg_tpu_torch.models.infer_fast import prepare_fast
+    from wsiseg_tpu_torch.models.ynet import init_ynet
+    from wsiseg_tpu_torch.ops import stem
+
+    cfg = default_config()
+    model = init_ynet(cfg, torch.Generator().manual_seed(0)).to(dev).eval()
+    fw = prepare_fast(model, cfg.dataset_mean, cfg.dataset_std,
+                      torch.bfloat16, fold=True)
+    img = torch.from_numpy(level2_image(*BENCH_HW, seed=30))[None].to(dev)
+    with torch.no_grad():
+        c1 = stem.stem_conv(img, fw.stem_w, fw.stem_b, fw.pad_rgb)
+        feats = encode_stages(fw.enc, None, fw.dtype,
+                              c1=c1.permute(0, 3, 1, 2))
+        reset_counts()
+        chain = decode_fold(fw.fold, feats, fw.dtype, use_chain=True,
+                            planar_head=True)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        per_layer = decode_fold(fw.fold, feats, fw.dtype, use_chain=False,
+                                planar_head=True)
+    assert counts["conv_chain"] == 5, counts
+    assert chain.shape == (1, 16, BENCH_HW[0] // 2, BENCH_HW[1] // 2)
+    assert torch.isfinite(chain).all()
+    err = assert_close(chain, per_layer)
+    ms = cuda_ms(lambda: decode_fold(fw.fold, feats, fw.dtype,
+                                     use_chain=True, planar_head=True), 5)
+    ms9 = cuda_ms(lambda: decode_fold(fw.fold, feats, fw.dtype,
+                                      use_chain=False, planar_head=True), 5)
+    print(f"[7] decode_fold(use_chain=True) at {BENCH_HW}: launches "
+          f"{counts}; vs use_chain=False max|d| {err:.6g}; decode_fold "
+          f"{ms:.4f} ms (chain) / {ms9:.4f} ms (conv9)", flush=True)
+    return counts
+
+
+def phase_head(dev) -> dict:
+    """conv3x3_small has no caller in the serving path (as in JAX); this
+    phase is its path: one call at the documented head shape."""
+    from wsiseg_tpu_torch.ops import conv9
+    h, w, ci, co = HEAD_SHAPE
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(np.abs(rng.randn(1, h, w, ci)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    k = torch.from_numpy(rng.randn(3, 3, ci, co).astype(np.float32)
+                         / np.sqrt(9 * ci)).to(dev)
+    reset_counts()
+    y = conv9.conv3x3_small(x, k)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    assert counts["conv3x3_small"] == 1 and torch.isfinite(y).all()
+    print(f"[8] conv3x3_small head {h}x{w} {ci}->{co}: launches {counts}",
+          flush=True)
+    return counts
 
 
 def main() -> None:
@@ -259,20 +550,47 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_start = time.time()
     smi = phase_identify()
     phase_build()
-    stem_res = phase_stem(dev)
+    stems = phase_stems(dev)
+    convs = phase_convs(dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli(dev, tmp)
-        launches = phase_serve(dev, tmp)
-    bench = stem_res["bench"]
-    print(json.dumps({"kernels": [{
-        "name": "stem_pool_conv", "route": "cuda",
-        "source": "wsiseg_tpu_torch/csrc/stem.cu",
-        "replaces": "wsiseg_tpu/ops/pallas_stem.py:244",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in stem_res.values()),
-        "ms": bench["ms"], "plain_ms": bench["plain_ms"]}]}))
+        default = phase_serve(dev, tmp, fold=False, n_slides=3)
+        fold = phase_serve(dev, tmp, fold=True, n_slides=2)
+    chain = phase_fold_chain(dev)
+    head = phase_head(dev)
+    launches = {"stem_pool_conv": default["stem_pool_conv"],
+                "stem_conv": fold["stem_conv"], "conv9": fold["conv9"],
+                "conv_chain": chain["conv_chain"],
+                "conv3x3_small": head["conv3x3_small"]}
+    rows = [
+        ("stem_pool_conv", "stem.cu", "wsiseg_tpu/ops/pallas_stem.py:244"),
+        ("stem_conv", "stem.cu", "wsiseg_tpu/ops/pallas_stem.py:79"),
+        ("conv9", "conv3x3.cu", "wsiseg_tpu/ops/conv9.py:49"),
+        ("conv_chain", "conv3x3.cu", "wsiseg_tpu/ops/conv9.py:175"),
+        ("conv3x3_small", "conv3x3.cu", "wsiseg_tpu/ops/pallas_conv.py:28"),
+    ]
+    kernels = []
+    for name, src, replaces in rows:
+        if name in stems:
+            r = stems[name]
+            vals = dict(r["bench"], **r["bound"])
+            vals["max_abs_err"] = max(v["max_abs_err"] for k, v in r.items()
+                                      if k != "bound")
+        else:
+            vals = convs[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"wsiseg_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": launches[name], "max_abs_err": vals["max_abs_err"],
+            "ms": vals["ms"], "plain_ms": vals["plain_ms"],
+            "bound_ms": vals["bound_ms"], "bound_by": vals["bound_by"],
+            "library_ms": vals["library_ms"]})
+    print(f"[9] all phases passed in {time.time() - t_start:.1f} s",
+          flush=True)
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
-"""Tests of the port that need an NVIDIA GPU (marker ``cuda``): the CUDA
-stem kernel against its plain PyTorch version, and the engine's kernel
-path (GPU) against its plain path (CPU). They skip where
-``torch.cuda.is_available()`` is False. This file imports no JAX, so it
-also runs on a machine without it:
+"""Tests of the port that need an NVIDIA GPU (marker ``cuda``): each CUDA
+kernel (both stem modes; the 3×3 conv kernel as conv9, conv_chain and
+conv3x3_small) against its plain PyTorch version, and the engine's kernel
+path (GPU) against its plain path (CPU) on the default and the fold route.
+They skip where ``torch.cuda.is_available()`` is False. This file imports
+no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
@@ -11,12 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from wsiseg_tpu.config import default_config
-from wsiseg_tpu.slides import SyntheticSlide
+from wsiseg_tpu_torch.config import default_config
 from wsiseg_tpu_torch.data.wsi_tiles import plan_slide
 from wsiseg_tpu_torch.infer.engine import DenseInferenceEngine
 from wsiseg_tpu_torch.models.ynet import init_ynet
-from wsiseg_tpu_torch.ops import stem
+from wsiseg_tpu_torch.ops import conv9, stem
+from wsiseg_tpu_torch.slides import SyntheticSlide
 
 MEAN = (0.485, 0.456, 0.406)
 STD = (0.229, 0.224, 0.225)
@@ -65,6 +66,99 @@ def test_stem_kernel_matches_plain(cuda_device, shape):
                                    atol=TOL * r.abs().max().item())
 
 
+def _close(got, ref):
+    ref = ref.float()
+    torch.testing.assert_close(got.float(), ref, rtol=TOL,
+                               atol=TOL * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("shape", [(1, 96, 256), (2, 100, 262),
+                                   (4, 3072, 4096)])
+def test_native_stem_kernel_matches_plain(cuda_device, shape):
+    n, h, w = shape
+    img = torch.from_numpy(np.random.RandomState(w).randint(
+        0, 256, (n, h, w, 3)).astype(np.uint8)).to(cuda_device)
+    wf, bias = _folded(cuda_device)
+    before = stem.STEM_CONV_LAUNCHES
+    got = stem.stem_conv(img, wf, bias, stem.pad_value(MEAN))
+    torch.cuda.synchronize()
+    assert stem.STEM_CONV_LAUNCHES == before + 1
+    assert got.shape == (n, h // 2, w // 2, 64)
+    _close(got, stem.stem_conv_ref(img, wf, bias, stem.pad_value(MEAN)))
+
+
+def _layers(device, chans, last_relu=True, seed=0):
+    r = np.random.RandomState(seed)
+    out = []
+    for i, (ci, co) in enumerate(zip(chans[:-1], chans[1:])):
+        k = torch.from_numpy(r.randn(3, 3, ci, co).astype(np.float32)
+                             / np.sqrt(9 * ci))
+        s = torch.from_numpy(r.rand(co).astype(np.float32) + 0.5)
+        b = torch.from_numpy(r.randn(co).astype(np.float32) * 0.1)
+        w, bb = conv9.prep_layer(k.to(device), s.to(device), b.to(device))
+        out.append((w, bb, last_relu or i + 2 < len(chans)))
+    return out
+
+
+def _act(device, n, h, w, c, seed=1):
+    return torch.from_numpy(np.random.RandomState(seed).randn(
+        n, h, w, c).astype(np.float32)).to(device).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("n,h,w,chans,out_dtype", [
+    (1, 37, 45, [8, 16], torch.bfloat16),
+    (2, 19, 45, [40, 70], torch.float32),
+    (1, 10, 17, [3, 5], torch.bfloat16),
+    (1, 384, 512, [384, 256], torch.bfloat16),
+])
+def test_conv9_kernel_matches_plain(cuda_device, n, h, w, chans, out_dtype):
+    x = _act(cuda_device, n, h, w, chans[0])
+    (wl, bl, _), = _layers(cuda_device, chans)
+    before = conv9.LAUNCHES["conv9"]
+    got = conv9.conv9(x, wl, bl, True, out_dtype)
+    torch.cuda.synchronize()
+    assert conv9.LAUNCHES["conv9"] == before + 1
+    assert got.dtype == out_dtype and got.shape == (n, h, w, chans[-1])
+    _close(got, conv9.conv9_ref(x, wl, bl, True, out_dtype))
+
+
+@pytest.mark.parametrize("h,w,chans,out_dtype", [
+    (13, 35, [32, 64, 64], torch.bfloat16),
+    (192, 256, [768, 256, 256], torch.bfloat16),
+    (83, 131, [32, 64, 64, 16], torch.float32),
+    (7, 19, [12, 20, 6, 10], torch.bfloat16),
+])
+def test_conv_chain_kernel_matches_plain(cuda_device, h, w, chans,
+                                         out_dtype):
+    x = _act(cuda_device, 1, h, w, chans[0])
+    layers = _layers(cuda_device, chans, last_relu=False)
+    before = conv9.LAUNCHES["conv_chain"]
+    got = conv9.conv_chain(x, layers, out_dtype)
+    torch.cuda.synchronize()
+    assert conv9.LAUNCHES["conv_chain"] == before + 1
+    _close(got, conv9.conv_chain_ref(x, layers, out_dtype))
+
+
+def test_conv3x3_small_kernel_matches_plain(cuda_device):
+    x = _act(cuda_device, 1, 208, 272, 64)
+    r = np.random.RandomState(2)
+    k = torch.from_numpy(r.randn(3, 3, 64, 16).astype(np.float32) / 24).to(
+        cuda_device)
+    b = torch.from_numpy(r.randn(16).astype(np.float32)).to(cuda_device)
+    before = conv9.LAUNCHES["conv3x3_small"]
+    got = conv9.conv3x3_small(x, k, b)
+    torch.cuda.synchronize()
+    assert conv9.LAUNCHES["conv3x3_small"] == before + 1
+    assert got.dtype == torch.float32
+    _close(got, conv9.conv3x3_small_ref(x, k, b))
+
+
+def test_conv_kernel_rejects_f32_input(cuda_device):
+    (wl, bl, _), = _layers(cuda_device, [8, 8])
+    with pytest.raises(ValueError, match="conv9_ref"):
+        conv9.conv9(torch.zeros(1, 8, 8, 8, device=cuda_device), wl, bl)
+
+
 def test_stem_kernel_rejects_f32_weights(cuda_device):
     wf, bias = _folded(cuda_device)
     img = torch.zeros((1, 32, 32, 3), dtype=torch.uint8, device=cuda_device)
@@ -72,15 +166,17 @@ def test_stem_kernel_rejects_f32_weights(cuda_device):
         stem.stem_pool_conv(img, wf.float(), bias, (0, 0, 0))
 
 
-def test_engine_gpu_matches_cpu(cuda_device):
+@pytest.mark.parametrize("fold", [False, True])
+def test_engine_gpu_matches_cpu(cuda_device, fold):
     cfg = default_config(tile_w=64, tile_h=64, tile_stride_w=32,
                          tile_stride_h=32)
     plan = plan_slide("syn", SyntheticSlide(width=4096, height=3072,
                                             num_levels=3, seed=11), cfg)
-    gpu = DenseInferenceEngine(init_ynet(cfg, torch.Generator().manual_seed(
-        0)), cfg, device=cuda_device).predict_slide_fcn(plan)
-    cpu = DenseInferenceEngine(init_ynet(cfg, torch.Generator().manual_seed(
-        0)), cfg, device="cpu").predict_slide_fcn(plan)
+    engines = [DenseInferenceEngine(init_ynet(cfg, torch.Generator(
+        ).manual_seed(0)), cfg, device=d) for d in (cuda_device, "cpu")]
+    for e in engines:
+        e.fcn_fold = fold
+    gpu, cpu = (e.predict_slide_fcn(plan) for e in engines)
     assert (gpu.labels == cpu.labels).mean() >= 0.99
     assert (np.abs(gpu.heatmap - cpu.heatmap) <= 2 / 255 + 1e-6).mean() \
         >= 0.99

@@ -1,7 +1,8 @@
 """Port's whole-image fast path (wsiseg_tpu_torch.models.fast_decoder /
 fast_encoder / infer_fast) against the JAX package: the exact s2d weight
-transforms element by element, encode_stages + decode_cells in f32, and
-the whole-image forward against flax YNet.segment."""
+transforms element by element, encode_stages + decode_cells in f32,
+decode_fold against the JAX decode_fold (Pallas kernels in interpret
+mode), and the whole-image forward against flax YNet.segment."""
 
 import jax
 import jax.numpy as jnp
@@ -138,3 +139,88 @@ def test_whole_image_forward_matches_flax_segment(cfg, models):
     planar = segment_whole_image(m, img, cfg.dataset_mean, cfg.dataset_std,
                                  dtype=torch.float32, planar_head=True)
     assert planar.shape == (h // 4, w // 4, 64)
+
+
+@pytest.fixture(scope="module")
+def fold_case(models):
+    """The 96×64 f32 Y-Net pyramid of tests/test_fast_decoder.py's
+    decode_fold parity test, from one seeded input."""
+    model, variables, m = models
+    x = jnp.asarray(np.random.RandomState(0).randn(1, 96, 64, 3).astype(
+        np.float32))
+    feats = model.apply(variables, x, method=FlaxYNet.encode)
+    tf = [torch.from_numpy(np.array(f)).permute(0, 3, 1, 2) for f in feats]
+    return variables, feats, tf, tfd.prepare_fold(m, torch.float32)
+
+
+@pytest.mark.parametrize("use_chain", [True, False])
+def test_decode_fold_matches_jax(fold_case, use_chain):
+    """The port's decode_fold (plain kernel versions on the CPU) against
+    the JAX decode_fold in interpret mode, planar s2d(2) head, f32.
+    With use_chain both round to bf16 at the five group outputs and the
+    port is within atol = rtol = 2e-3 everywhere. Without it, every one of
+    the 11 convs rounds its output to bf16, and a one-ulp flip where the
+    two f32 sums straddle a rounding boundary carries on to the logits:
+    measured 34-50 of 24,576 values past 2e-3, max 3.4e-3. There, 99.5 %
+    must be within 2e-3 and all within 2^-6·max|ref| (four bf16 ulps at
+    the logits' range)."""
+    variables, feats, tf, prep = fold_case
+    ref = np.asarray(jfd.decode_fold(variables, feats, jnp.float32, br=8,
+                                     wc=16, use_chain=use_chain,
+                                     planar_head=True, interpret=True))
+    with torch.no_grad():
+        got = tfd.decode_fold(prep, tf, torch.float32, use_chain=use_chain,
+                              planar_head=True)
+    assert got.shape == (1, 16, 48, 32) and got.dtype == torch.float32
+    got = got[0].permute(1, 2, 0).numpy()
+    if use_chain:
+        np.testing.assert_allclose(got, ref, atol=2e-3, rtol=2e-3)
+    else:
+        d = np.abs(got - ref)
+        assert (d <= 2e-3 + 2e-3 * np.abs(ref)).mean() >= 0.995
+        assert d.max() <= 2.0 ** -6 * np.abs(ref).max()
+    with torch.no_grad():
+        native = tfd.decode_fold(prep, tf, torch.float32,
+                                 use_chain=use_chain)
+    torch.testing.assert_close(
+        native, tfd.depth_to_space(torch.from_numpy(got).permute(
+            2, 0, 1)[None], 2), rtol=0, atol=0)
+
+
+def test_prepare_fold_layers(models):
+    """Group shapes of prepare_fold: blocks 0-1 native, blocks 2-3 and
+    block4 + head in s2d(2), the head without ReLU."""
+    _, _, m = models
+    prep = tfd.prepare_fold(m, torch.bfloat16)
+    shapes = {k: [(tuple(w.shape), b.dtype, r) for w, b, r in v]
+              for k, v in prep.items()}
+    f32 = torch.float32
+    assert shapes == {
+        "b0": [((256, 9, 768), f32, True), ((256, 9, 256), f32, True)],
+        "b1": [((128, 9, 384), f32, True), ((128, 9, 128), f32, True)],
+        "b2": [((256, 9, 384), f32, True), ((256, 9, 256), f32, True)],
+        "b3": [((128, 9, 320), f32, True), ((128, 9, 128), f32, True)],
+        "b4": [((64, 9, 32), f32, True), ((64, 9, 64), f32, True),
+               ((16, 9, 64), f32, False)]}
+    assert all(w.dtype == torch.bfloat16 for v in prep.values()
+               for w, _, _ in v)
+
+
+def test_whole_image_fold_forward(cfg, models):
+    """The fold route's whole-image forward agrees with the default route
+    (f32 oracle run: the stems' folded weights are bf16 by contract, the
+    rest f32) and has the s2d(2) planar head layout."""
+    _, _, m = models
+    img = np.random.RandomState(8).randint(0, 256, (64, 96, 3)).astype(
+        np.uint8)
+    ref = segment_whole_image(m, img, cfg.dataset_mean, cfg.dataset_std,
+                              dtype=torch.float32).numpy()
+    got = segment_whole_image(m, img, cfg.dataset_mean, cfg.dataset_std,
+                              dtype=torch.float32, fold=True).numpy()
+    assert got.shape == ref.shape == (64, 96, 4)
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=2e-2 * np.abs(ref).max())
+    planar = segment_whole_image(m, img, cfg.dataset_mean, cfg.dataset_std,
+                                 dtype=torch.float32, planar_head=True,
+                                 fold=True)
+    assert planar.shape == (32, 48, 16)

@@ -11,10 +11,13 @@ Design:
 - the TPU's Pallas kernels become hand-written CUDA kernels for Hopper
   (``csrc/``), built with ``nvcc`` at first use and bound with ``ctypes``;
   each has a plain PyTorch version beside it that CPU tensors take;
-- the JAX-free modules of ``wsiseg_tpu`` (``config``, ``slides``,
-  ``ops.geometry``, ``utils.filesystem``) are shared as they are.
+- the port keeps its own copies of the JAX-free modules of
+  ``wsiseg_tpu`` (``config``, ``slides``, ``ops.geometry``,
+  ``utils.filesystem``), with the same structure and names; the slide
+  readers still build the C++ tile decoder from ``native/wsitile``;
+- entry points run on the CUDA device unless the caller asks for the CPU.
 
-This package never imports ``jax``, ``flax`` or ``optax``.
+This package never imports ``wsiseg_tpu``, ``jax``, ``flax`` or ``optax``.
 """
 
-from wsiseg_tpu.config import Config, default_config  # noqa: F401
+from wsiseg_tpu_torch.config import Config, default_config  # noqa: F401

@@ -7,7 +7,7 @@ import argparse
 
 import torch
 
-from wsiseg_tpu.config import Config
+from wsiseg_tpu_torch.config import Config
 from wsiseg_tpu_torch.models.ynet import init_ynet
 from wsiseg_tpu_torch.train.state import latest_checkpoint, \
     restore_checkpoint
@@ -34,9 +34,10 @@ def restore_for_eval(cfg: Config):
 
 
 def parse_eval_flags(argv):
-    """Mode pre-parser for the eval CLIs (same flags as the JAX package).
-    FCN is the default; ``--grid``, ``--streamed`` and ``--sharded`` are
-    parsed so that the eval entry can refuse them by name."""
+    """Mode pre-parser for the eval CLIs (the JAX package's flags plus
+    ``--device``). FCN is the default; ``--grid``, ``--streamed`` and
+    ``--sharded`` are parsed so that the eval entry can refuse them by
+    name."""
     p = argparse.ArgumentParser(add_help=False)
     p.add_argument("--grid", action="store_true",
                    help="exact reference overlap-add stitching")
@@ -49,6 +50,9 @@ def parse_eval_flags(argv):
     p.add_argument("--slides_in_flight", type=int, default=4,
                    help="serve up to N consecutive same-geometry slides as "
                         "one batched forward; 1 disables")
+    p.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
+                   help="where the engine runs (default cuda; raises when "
+                        "no CUDA device is present)")
     ns, rest = p.parse_known_args(argv)
     if ns.fcn and (ns.grid or ns.streamed or ns.sharded):
         p.error("--fcn is mutually exclusive with --grid/--streamed/"

@@ -2,7 +2,7 @@
 ``wsiseg_tpu/data/wsi_tiles.py`` (``SlidePlan``, ``plan_slide``,
 ``SlideCollection``): per slide, the tissue mask from the level-2
 thumbnail (PNG-cached when a cache dir is given) and the
-foreground-gated reference tile grid (``wsiseg_tpu.ops.geometry``).
+foreground-gated reference tile grid (``wsiseg_tpu_torch.ops.geometry``).
 PIL is imported only when the mask cache is used.
 """
 
@@ -14,11 +14,11 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from wsiseg_tpu.config import Config
-from wsiseg_tpu.ops.geometry import (TileGrid, filter_grid_by_mask,
+from wsiseg_tpu_torch.config import Config
+from wsiseg_tpu_torch.ops.geometry import (TileGrid, filter_grid_by_mask,
                                      wsi_tile_grid)
-from wsiseg_tpu.slides import SlideReader, open_slide
-from wsiseg_tpu.utils.filesystem import make_folder
+from wsiseg_tpu_torch.slides import SlideReader, open_slide
+from wsiseg_tpu_torch.utils.filesystem import make_folder
 from wsiseg_tpu_torch.ops.tissue import find_nuclei
 
 
@@ -92,7 +92,7 @@ class SlideCollection:
         mask_dir = (mask_cache_dir if mask_cache_dir is not None
                     else cfg.wsi_mask_pth)
         if isinstance(source, str):
-            from wsiseg_tpu.slides.reader import glob_slides
+            from wsiseg_tpu_torch.slides.reader import glob_slides
             paths = glob_slides(source, case_dirs=True)
             entries = [(os.path.basename(p), open_slide(p), p)
                        for p in paths]

@@ -10,8 +10,14 @@ floors, argmax, tissue-masked heat) runs on the device, labels are packed
 2 bits each, and only the u8 planes come back; the host interleaves them
 to full resolution.
 
+``engine.fcn_fold = True`` (opt-in, as in JAX) takes the fold route
+instead: the native stem kernel, the encoder, and ``decode_fold`` on the
+conv kernels, whose head emits s2d(2) planes — the postprocess, label
+packing (four planes in one byte) and interleave then run at f = 2.
+
 The model's weights are converted once, when the engine is built
-(:func:`wsiseg_tpu_torch.models.infer_fast.prepare_fast`). Routes the JAX
+(:func:`wsiseg_tpu_torch.models.infer_fast.prepare_fast`; the fold
+route's at its first use). Routes the JAX
 engine has and this port does not yet (grid and cls modes, chunked,
 banded and oversize FCN, ``keep_probs``/``keep_canvas``, scan levels
 other than 2) raise ``NotImplementedError`` naming their ROADMAP item.
@@ -27,9 +33,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from wsiseg_tpu.config import Config
+from wsiseg_tpu_torch.config import Config
 from wsiseg_tpu_torch.data.wsi_tiles import SlidePlan
-from wsiseg_tpu_torch.models.fast_decoder import S2D_HEAD_F
+from wsiseg_tpu_torch.models.fast_decoder import S2D_HEAD_F, prepare_fold
 from wsiseg_tpu_torch.models.infer_fast import prepare_fast, \
     segment_from_image
 
@@ -63,13 +69,23 @@ class StagedImage:
     ready: Optional[torch.cuda.Event] = None
 
 
+def resolve_device(device="cuda") -> torch.device:
+    """``device`` as a ``torch.device``; raises ``RuntimeError`` for a CUDA
+    device when none is present (entry points never fall back to the
+    CPU: the caller asks for it)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but "
+                           "torch.cuda.is_available() is False; pass "
+                           "device='cpu' (CLI: --device cpu) to run on the "
+                           "CPU")
+    return device
+
+
 class DenseInferenceEngine:
     def __init__(self, model, cfg: Config, mode: str = "seg",
-                 device="cpu", dtype: torch.dtype = torch.bfloat16):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {self.device} requested but "
-                               "torch.cuda.is_available() is False")
+                 device="cuda", dtype: torch.dtype = torch.bfloat16):
+        self.device = resolve_device(device)
         if mode != "seg":
             raise NotImplementedError(f"mode {mode!r} is {ROUTES_ITEM}")
         if cfg.scan_level != 2 or cfg.scan_resize != 1:
@@ -83,6 +99,8 @@ class DenseInferenceEngine:
         self.fast = prepare_fast(self.model, cfg.dataset_mean,
                                  cfg.dataset_std, dtype)
         self.slides_in_flight = 1
+        #: the fold route (JAX ``fcn_fold``, ``engine.py:464-471``), opt-in
+        self.fcn_fold = False
         self.fcn_fast_max_px = FCN_FAST_MAX_PX
         self._h2d_stream = None
         self._h2d_lock = threading.Lock()
@@ -231,11 +249,19 @@ class DenseInferenceEngine:
                 out[a::f, b::f] = planes[a * f + b]
         return out[:hs, :ws]
 
+    def _head_f(self) -> int:
+        """s2d factor of the head planes: 2 on the fold route (JAX
+        ``engine.py:482``), else ``S2D_HEAD_F``."""
+        return 2 if self.fcn_fold else S2D_HEAD_F
+
     @torch.no_grad()
     def _run_fused(self, imgs: torch.Tensor, masks: torch.Tensor):
-        """(N, Hp, Wp, 3) u8 + (N, Hp/4, Wp/4) u8 masks on the device →
+        """(N, Hp, Wp, 3) u8 + (N, Hp/f, Wp/f) u8 masks on the device →
         (packed labels, heat planes) on the device."""
-        y_s = segment_from_image(self.fast, imgs, planar_head=True)
+        if self.fcn_fold and self.fast.fold is None:
+            self.fast.fold = prepare_fold(self.model, self.dtype)
+        y_s = segment_from_image(self.fast, imgs, planar_head=True,
+                                 fold=self.fcn_fold)
         labels_p, heat_p = self._postprocess_s2d(y_s, masks)
         return self._pack_labels(labels_p), heat_p
 
@@ -251,7 +277,7 @@ class DenseInferenceEngine:
         for p in plans:
             self._check_plan(p)
         (hp, wp), = dims
-        f = S2D_HEAD_F
+        f = self._head_f()
         masks = torch.from_numpy(np.stack(
             [self._half_mask(p, (hp // f, wp // f)) for p in plans]))
         if imgs is None:
@@ -266,7 +292,7 @@ class DenseInferenceEngine:
         labels, heat = self._run_fused(batch, masks)
         labels, heat = labels.cpu().numpy(), heat.cpu().numpy()
         per = (time.time() - t0) / len(plans)
-        f2 = S2D_HEAD_F * S2D_HEAD_F
+        f2 = self._head_f() ** 2
         results = []
         for k, p in enumerate(plans):
             hs, ws = p.stitch_hw

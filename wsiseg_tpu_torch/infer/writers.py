@@ -11,8 +11,8 @@ import os
 
 import numpy as np
 
-from wsiseg_tpu.config import Config
-from wsiseg_tpu.utils.filesystem import make_folder
+from wsiseg_tpu_torch.config import Config
+from wsiseg_tpu_torch.utils.filesystem import make_folder
 
 
 def _save_png(pth: str, img: np.ndarray) -> None:

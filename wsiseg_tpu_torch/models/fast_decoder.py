@@ -14,7 +14,13 @@ Channel order is the JAX one, ``(α·f + β)·C + c`` (position major).
 Kernel transforms work on HWIO tensors, exactly as the JAX functions do
 (so the tests compare them element by element), and
 :func:`prepare_decoder` converts the results to OIHW once, when the
-engine is built. Every conv is a plain ``F.conv2d`` (cuDNN on the card).
+engine is built. Every conv of :func:`decode_cells` is a plain
+``F.conv2d`` (cuDNN on the card).
+
+:func:`decode_fold` is the fold route's decoder (JAX ``decode_fold``): its
+layer groups run on the port's hand-written conv kernels
+(:mod:`wsiseg_tpu_torch.ops.conv9`), with weights prepared once by
+:func:`prepare_fold`.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from wsiseg_tpu_torch.ops.conv9 import conv9, conv_chain, prep_layer
 
 # s2d factor of the head logits that decode_cells(s2d_head=True) emits —
 # the engine's planar postprocess interleaves f² position planes.
@@ -232,3 +240,115 @@ def decode_cells(prep: Dict[str, object], feats: List[Optional[torch.Tensor]],
     if s2d_head:
         return y.to(dtype)
     return depth_to_space(y, S2D_HEAD_F).float()
+
+
+# ---- fold route: decode_fold on the conv kernels ----
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    """Logical NCHW (channels_last in memory) → the NHWC view."""
+    return x.permute(0, 2, 3, 1)
+
+
+def _s2d_nhwc(x: torch.Tensor, f: int = 2) -> torch.Tensor:
+    return space_to_depth(x.permute(0, 3, 1, 2), f).permute(0, 2, 3, 1)
+
+
+def _d2s_nhwc(x: torch.Tensor, f: int = 2) -> torch.Tensor:
+    return depth_to_space(x.permute(0, 3, 1, 2), f).permute(0, 2, 3, 1)
+
+
+def _up2_nhwc(x: torch.Tensor) -> torch.Tensor:
+    b, h, w, c = x.shape
+    return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c) \
+        .reshape(b, 2 * h, 2 * w, c)
+
+
+@torch.no_grad()
+def prepare_fold(model, dtype: torch.dtype) -> Dict[str, list]:
+    """All weight transforms of :func:`decode_fold`, done once: per layer
+    group a list of ``(w (Cout, 9, Cin), bias f32, relu)`` from
+    :func:`wsiseg_tpu_torch.ops.conv9.prep_layer` (BN scale folded in f32,
+    rounded once to ``dtype``). Blocks 0-1 native; blocks 2-3 conv1 =
+    ``concat([upfold(w1[:, :, :cup]), s2d(w1[:, :, cup:])], Cin)`` and
+    conv2 = ``s2d(w2)`` with 4× tiled affines (JAX ``fast_decoder.py:
+    446-450``); block4 + head ``upfold``, ``s2d``, ``s2d(head)`` with the
+    tiled head bias (``:460-468``). Unlike :func:`prepare_decoder`'s cell
+    layout, everything is s2d(2) and the head stays s2d(2)."""
+    blocks = model.decoder.blocks
+    prep: Dict[str, list] = {}
+
+    def layer(k, bn, reps=1):
+        s, t = _bn_affine(bn)
+        return (*prep_layer(k, s.repeat(reps), t.repeat(reps), dtype), True)
+
+    for i in (0, 1):
+        prep[f"b{i}"] = [layer(hwio(getattr(blocks[i], f"conv{cj}")[0]),
+                               getattr(blocks[i], f"conv{cj}")[1])
+                         for cj in (1, 2)]
+    for i in (2, 3):
+        w1 = hwio(blocks[i].conv1[0])
+        cup = blocks[i - 1].conv2[0].out_channels
+        k1 = torch.cat([upfold_kernel(w1[:, :, :cup]),
+                        s2d_kernel_f(w1[:, :, cup:], 2)], dim=2)
+        prep[f"b{i}"] = [layer(k1, blocks[i].conv1[1], 4),
+                         layer(s2d_kernel_f(hwio(blocks[i].conv2[0]), 2),
+                               blocks[i].conv2[1], 4)]
+    b4 = blocks[4]
+    head = model.segmentation_head[0]
+    prep["b4"] = [layer(upfold_kernel(hwio(b4.conv1[0])), b4.conv1[1], 4),
+                  layer(s2d_kernel_f(hwio(b4.conv2[0]), 2), b4.conv2[1], 4),
+                  (*prep_layer(s2d_kernel_f(hwio(head), 2), None,
+                               head.bias.detach().float().repeat(4), dtype),
+                   False)]
+    return prep
+
+
+def _run_layers(x: torch.Tensor, layers, out_dtype=torch.bfloat16,
+                use_chain: bool = True) -> torch.Tensor:
+    """A layer group (JAX ``_run_layers``, ``fast_decoder.py:42``): one
+    fused :func:`conv_chain` launch, or :func:`conv9` per layer with bf16
+    between layers."""
+    if use_chain:
+        return conv_chain(x, layers, out_dtype)
+    for i, (w, b, relu) in enumerate(layers):
+        x = conv9(x, w, b, relu,
+                  out_dtype if i + 1 == len(layers) else torch.bfloat16)
+    return x
+
+
+def decode_fold(prep: Dict[str, list], feats: List[torch.Tensor],
+                dtype: torch.dtype, use_chain: bool = False,
+                planar_head: bool = False) -> torch.Tensor:
+    """U-Net decoder forward with blocks 2-4 + head in the s2d(2) domain,
+    each layer group on the conv kernels — JAX ``decode_fold``
+    (``fast_decoder.py:383-485``), with a batch dimension. ``feats`` are
+    the encoder's [c5, c4, c3, c2, c1] (B, C, h, w), native c1 (stage
+    dims even). Rounding points as in JAX: every group but the last
+    emits bf16; the block4 + head group emits f32 logits. The glue
+    between groups (upsample, concat, space_to_depth, depth_to_space)
+    stays torch ops, as it is XLA in JAX.
+
+    ``use_chain`` runs each group as one :func:`conv_chain` launch instead
+    of :func:`conv9` per layer. It defaults to False, unlike JAX: on the
+    H100 the per-layer route is the faster one and the one the engine
+    serves (``PERF.md`` §6).
+
+    ``planar_head=True`` returns the (B, 4·nc, H/2, W/2) s2d(2) head
+    logits (channel pos·nc + c) without the final depth_to_space;
+    otherwise (B, nc, H, W) f32."""
+    xx = _nhwc(feats[0]).to(dtype)
+    skips = [_nhwc(f) for f in feats[1:]]
+    for i in (0, 1):
+        xx = torch.cat([_up2_nhwc(xx).to(dtype), skips[i].to(dtype)], dim=3)
+        xx = _run_layers(xx, prep[f"b{i}"], use_chain=use_chain)
+    x = xx                                  # (B, H/8, W/8, 128) native
+    for i in (2, 3):
+        xin = torch.cat([x.to(dtype), _s2d_nhwc(skips[i].to(dtype))], dim=3)
+        x = _run_layers(xin, prep[f"b{i}"], use_chain=use_chain)
+        if i < 3:
+            x = _d2s_nhwc(x)                # native for the next upfold
+    y = _run_layers(_d2s_nhwc(x).to(dtype), prep["b4"],
+                    out_dtype=torch.float32, use_chain=use_chain)
+    if planar_head:
+        return y.permute(0, 3, 1, 2)
+    return _d2s_nhwc(y).permute(0, 3, 1, 2)

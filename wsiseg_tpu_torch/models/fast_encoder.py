@@ -1,6 +1,7 @@
 """Inference-fast functional ResNet stages — counterpart of
 ``wsiseg_tpu/models/fast_encoder.py`` (the ``encode_stages`` path that
-the fused stem feeds).
+the stem kernels feed: the fused stem's pooled c1, or the native c1 of the
+fold route, max-pooled here).
 
 Inference BatchNorm runs as an f32 affine on the conv output; weights are
 prepared once (:func:`prepare_encoder`). Layer 1 runs residual-folded
@@ -14,6 +15,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from wsiseg_tpu_torch.models.fast_decoder import (_bn_affine, _chan, conv,
@@ -76,12 +78,18 @@ def _basic_block_resfold(p: Dict[str, object], xx: torch.Tensor,
     return torch.relu(conv(a, p["k2"]) + p["t2"]).to(dtype)
 
 
-def encode_stages(prep: List[List[Dict[str, object]]], pooled: torch.Tensor,
-                  dtype: torch.dtype,
+def encode_stages(prep: List[List[Dict[str, object]]],
+                  pooled: Optional[torch.Tensor], dtype: torch.dtype,
                   c1: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
-    """The four ResNet stages from the stem's pooled output (B, 64, H/4,
-    W/4). Returns [c5, c4, c3, c2, c1] (``c1`` passed through; the fused
-    stem path hands the decoder ``space_to_depth(c1)`` instead)."""
+    """JAX ``encode_stages`` (``fast_encoder.py:214``): the four ResNet
+    stages from the stem's pooled output (B, 64, H/4, W/4), or, with
+    ``pooled`` None, from the native stem output ``c1``
+    (B, 64, H/2, W/2) through the 3×3/2 max-pool (JAX ``maxpool_s2d``, an
+    XLA op there: exact, as ``F.max_pool2d`` pads with -inf). Returns
+    [c5, c4, c3, c2, c1] (``c1`` passed through; the fused stem path hands
+    the decoder ``space_to_depth(c1)`` instead)."""
+    if pooled is None:
+        pooled = F.max_pool2d(c1, 3, 2, 1)
     xx = pooled.to(dtype)
     feats = []
     for i, blocks in enumerate(prep):

@@ -17,7 +17,7 @@ from typing import Dict
 import torch
 from torch import nn
 
-from wsiseg_tpu.config import Config
+from wsiseg_tpu_torch.config import Config
 from wsiseg_tpu_torch.models.heads import Classifier, Regressor
 from wsiseg_tpu_torch.models.resnet import (NOT_PORTED, ResNetEncoder,
                                             encoder_out_channels)

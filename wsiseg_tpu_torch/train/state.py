@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from wsiseg_tpu.utils.filesystem import make_folder
+from wsiseg_tpu_torch.utils.filesystem import make_folder
 
 
 def checkpoint_path(model_save_pth: str, arch: str, epoch: int) -> str:
