@@ -3,12 +3,16 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel from ``wsiseg_tpu_torch/csrc`` (one ``nvcc`` per
-source, all started together) and holds each against its plain PyTorch
-version on the card at the serving path's shapes and batches and at a
-ragged shape:
-the two stem modes (K1 ``stem_pool_conv``, K2 ``stem_conv``) and the 3×3
-conv kernel as ``conv9`` (K3), ``conv_chain`` (K4) and ``conv3x3_small``
-(K5). Then it drives the port's paths with every launch count set to 0
+source, all started together), prints ptxas's register/spill report of
+the TMA/wgmma conv (``csrc/conv3x3_sm90.cu``) and its ``HGMMA`` and
+``UTMALDG`` instruction counts from ``cuobjdump -sass``, and holds each
+kernel against its plain PyTorch version on the card at the serving
+path's shapes and batches and at a ragged shape: the two stem modes (K1
+``stem_pool_conv``, K2 ``stem_conv``), the single conv (K3 ``conv9``, K5
+``conv3x3_small``, ``conv3x3_sm90.cu``) and the fused chain (K4
+``conv_chain``, ``conv3x3.cu``); then the Hopper probes of
+``wsiseg_tpu_torch.probes`` once each against their plain versions, and
+timed. Then it drives the port's paths with every launch count set to 0
 just before and read just after:
 
 - ``python -m wsiseg_tpu_torch eval-tumorbed`` on two small slides (default
@@ -32,8 +36,11 @@ any failure or when no CUDA device is present. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -45,14 +52,13 @@ import torch.nn.functional as F
 from PIL import Image
 
 from wsiseg_tpu_torch.data.bench_slide import level2_image
+from wsiseg_tpu_torch.probes import bound, cuda_ms
 
 BENCH_HW = (3072, 4096)          # level-2 (H, W) of the bench geometry
 RAGGED_HW = (96, 256)
 GROUP = 4                        # slides per stem launch in the group case
 SERVE_IN_FLIGHT = 2              # slides per launch in the serve phases
 TOL = 2.0 ** -7                  # one bf16 ulp, relative
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-BF16_FLOP_PER_S = 989e12         # dense bf16 tensor cores, same source
 MEAN = (0.485, 0.456, 0.406)
 STD = (0.229, 0.224, 0.225)
 
@@ -67,32 +73,6 @@ FOLD_GROUPS = [
 ]
 RAGGED_CHAIN = ("ragged", 83, 131, [32, 64, 64, 16], False, torch.float32)
 HEAD_SHAPE = (1664, 2176, 64, 16)     # pallas_conv.py's documented shape
-
-
-def cuda_ms(fn, iters: int = 20) -> float:
-    """Median ms of ``fn`` over ``iters`` CUDA-event-timed calls, after
-    warm-up."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def bound(flops: float, nbytes: float) -> dict:
-    """Least time the card could take: the larger of the bytes over HBM
-    rate and the operations over the bf16 tensor-core peak."""
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
-    return {"bound_ms": 1e3 * max(t_b, t_f),
-            "bound_by": "bytes" if t_b >= t_f else "operations"}
 
 
 def reset_counts() -> None:
@@ -127,12 +107,70 @@ def phase_identify() -> str:
     return smi
 
 
-def phase_build() -> None:
+def _cuobjdump() -> str:
+    """cuobjdump from the CUDA toolkit, or the copy Triton carries."""
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    cands = ["/usr/local/cuda/bin/cuobjdump"]
+    spec = importlib.util.find_spec("triton")
+    if spec and spec.origin:
+        cands.append(os.path.join(os.path.dirname(spec.origin), "backends",
+                                  "nvidia", "bin", "cuobjdump"))
+    for c in cands:
+        if os.path.exists(c):
+            return c
+    raise RuntimeError(f"no cuobjdump on PATH or in {cands}")
+
+
+def sass_counts(lib, kernel: str) -> dict:
+    """wgmma (HGMMA) and TMA load (UTMALDG) instructions in the SASS of
+    every function of the library whose name contains ``kernel``."""
+    sass = subprocess.run([_cuobjdump(), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    opcodes = ("HGMMA", "UTMALDG")
+    counts, inside = dict.fromkeys(opcodes, 0), False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside:
+            for op in opcodes:
+                counts[op] += bool(re.search(rf"\b{op}\b", line))
+    return counts
+
+
+def ptxas_lines(report: str, kernel: str) -> list:
+    """ptxas -v's registers, spills and shared memory per instantiation
+    of ``kernel``."""
+    out, name, spill = [], None, ""
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if kernel in line else None
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "registers" in line:
+            args = re.search(r"ILi(\d+)ELb([01])E", name)
+            tag = (f"BN={args.group(1)} f32_out={args.group(2)}" if args
+                   else name)
+            out.append(f"{tag}: {line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return out
+
+
+def phase_build() -> dict:
     from wsiseg_tpu_torch.ops import stem
     t0 = time.time()
     lib = stem.build_library()
     stem._library()
     print(f"[2] built {lib.name} in {time.time() - t0:.2f} s", flush=True)
+    for line in ptxas_lines(stem.ptxas_report("conv3x3_sm90"),
+                            "conv9_sm90_kernel"):
+        print(f"[2] ptxas conv9_sm90_kernel {line}", flush=True)
+    counts = sass_counts(lib, "conv9_sm90_kernel")
+    print(f"[2] cuobjdump -sass conv9_sm90_kernel (all instantiations): "
+          f"{counts}", flush=True)
+    assert all(counts.values()), f"conv9_sm90_kernel lacks {counts}"
+    return counts
 
 
 def _stem_weights(dev):
@@ -299,10 +337,12 @@ def phase_convs(dev) -> dict:
             cost = _conv_cost(h, w, chans[i:i + 2],
                               4 if odi == torch.float32 else 2)
             add("conv9", err, ms, plain_ms, lib_ms, cost, bench)
+            b = bound(*cost)
             print(f"[4] conv9 {gname}.{i} {h}x{w} {chans[i]}->"
                   f"{chans[i + 1]}: max|d| {err:.6g}, kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, F.conv2d {lib_ms:.4f} ms, bound "
-                  f"{bound(*cost)['bound_ms']:.4f} ms", flush=True)
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}; kernel at "
+                  f"{100 * b['bound_ms'] / ms:.1f} % of it)", flush=True)
             if not last:
                 xi = got
         if not bench:
@@ -348,6 +388,14 @@ def phase_convs(dev) -> dict:
     for v in acc.values():
         v.update(bound(v.pop("flops"), v.pop("bytes")))
     return acc
+
+
+def phase_probes(dev) -> dict:
+    """The Hopper probes (csrc/probes.cu) once each against their plain
+    versions, then timed at the TPU probes' shapes."""
+    from wsiseg_tpu_torch import probes
+    return probes.run_probes(
+        dev, lambda msg: print(f"[4b] {msg}", flush=True))
 
 
 def phase_cli(dev, tmp: str) -> None:
@@ -449,7 +497,10 @@ def phase_serve(dev, tmp: str, fold: bool, n_slides: int) -> dict:
     counts = read_counts()
     if fold:
         assert counts["stem_conv"] > 0, "fold route never launched stem_conv"
-        assert counts["conv9"] > 0, "fold route never launched conv9"
+        groups = -(-n_slides // SERVE_IN_FLIGHT)
+        assert counts["conv9"] == 11 * groups, \
+            f"fold route: {counts['conv9']} conv9 launches for {groups} " \
+            "slide group(s), not 11 each"
         assert counts["stem_pool_conv"] == 0, counts
     else:
         assert counts["stem_pool_conv"] > 0, \
@@ -555,6 +606,7 @@ def main() -> None:
     phase_build()
     stems = phase_stems(dev)
     convs = phase_convs(dev)
+    prb = phase_probes(dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli(dev, tmp)
         default = phase_serve(dev, tmp, fold=False, n_slides=3)
@@ -565,12 +617,18 @@ def main() -> None:
                 "stem_conv": fold["stem_conv"], "conv9": fold["conv9"],
                 "conv_chain": chain["conv_chain"],
                 "conv3x3_small": head["conv3x3_small"]}
+    launches.update({k: v["launches"] for k, v in prb.items()})
     rows = [
         ("stem_pool_conv", "stem.cu", "wsiseg_tpu/ops/pallas_stem.py:244"),
         ("stem_conv", "stem.cu", "wsiseg_tpu/ops/pallas_stem.py:79"),
-        ("conv9", "conv3x3.cu", "wsiseg_tpu/ops/conv9.py:49"),
+        ("conv9", "conv3x3_sm90.cu", "wsiseg_tpu/ops/conv9.py:49"),
         ("conv_chain", "conv3x3.cu", "wsiseg_tpu/ops/conv9.py:175"),
-        ("conv3x3_small", "conv3x3.cu", "wsiseg_tpu/ops/pallas_conv.py:28"),
+        ("conv3x3_small", "conv3x3_sm90.cu",
+         "wsiseg_tpu/ops/pallas_conv.py:28"),
+        ("probe_wgmma", "probes.cu", "scripts/probe_dot.py:38"),
+        ("probe_load", "probes.cu", "scripts/probe_dot2.py:58"),
+        ("probe_store", "probes.cu", "scripts/probe_dot3.py:39"),
+        ("probe_window", "probes.cu", "scripts/probe_dma64.py:35"),
     ]
     kernels = []
     for name, src, replaces in rows:
@@ -580,7 +638,7 @@ def main() -> None:
             vals["max_abs_err"] = max(v["max_abs_err"] for k, v in r.items()
                                       if k != "bound")
         else:
-            vals = convs[name]
+            vals = convs.get(name) or prb[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"wsiseg_tpu_torch/csrc/{src}", "replaces": replaces,

@@ -1,7 +1,8 @@
 """Tests of the port that need an NVIDIA GPU (marker ``cuda``): each CUDA
-kernel (both stem modes; the 3×3 conv kernel as conv9, conv_chain and
-conv3x3_small) against its plain PyTorch version, and the engine's kernel
-path (GPU) against its plain path (CPU) on the default and the fold route.
+kernel (both stem modes; the TMA/wgmma single conv as conv9,
+conv3x3_small and a one-layer conv_chain; the fused chain as conv_chain)
+against its plain PyTorch version, and the engine's kernel path (GPU)
+against its plain path (CPU) on the default and the fold route.
 They skip where ``torch.cuda.is_available()`` is False. This file imports
 no JAX, so it also runs on a machine without it:
 
@@ -110,6 +111,12 @@ def _act(device, n, h, w, c, seed=1):
     (2, 19, 45, [40, 70], torch.float32),
     (1, 10, 17, [3, 5], torch.bfloat16),
     (1, 384, 512, [384, 256], torch.bfloat16),
+    (1, 64, 200, [64, 16], torch.float32),      # Cout = 16, f32 (the head)
+    (1, 96, 300, [32, 64], torch.bfloat16),     # Cin = 32 (block4.0)
+    (1, 33, 333, [64, 64], torch.bfloat16),     # W not a multiple of 128
+    (1, 1, 77, [16, 32], torch.bfloat16),       # H = 1
+    (2, 192, 256, [768, 256], torch.bfloat16),  # N = 2 at block0.0
+    (1, 10, 140, [16, 300], torch.float32),     # two N tiles
 ])
 def test_conv9_kernel_matches_plain(cuda_device, n, h, w, chans, out_dtype):
     x = _act(cuda_device, n, h, w, chans[0])
@@ -123,6 +130,7 @@ def test_conv9_kernel_matches_plain(cuda_device, n, h, w, chans, out_dtype):
 
 
 @pytest.mark.parametrize("h,w,chans,out_dtype", [
+    (13, 35, [32, 64], torch.bfloat16),         # one layer: the single conv
     (13, 35, [32, 64, 64], torch.bfloat16),
     (192, 256, [768, 256, 256], torch.bfloat16),
     (83, 131, [32, 64, 64, 16], torch.float32),

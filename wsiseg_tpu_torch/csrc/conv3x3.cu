@@ -1,18 +1,15 @@
-// Fused chain of L = 1..3 SAME 3×3/1 convolutions for Hopper (sm_90a):
+// Fused chain of L = 2, 3 SAME 3×3/1 convolutions for Hopper (sm_90a):
 // per layer y = conv(x, w) + bias, optional ReLU, with the BN scale already
 // folded into w by the Python wrapper (wsiseg_tpu_torch/ops/conv9.py).
 // Intermediates stay in shared memory as bf16; only the last layer is
 // written, in bf16 or f32.
 //
-// Replaces three TPU kernels, which compute cases of the same function:
-//   wsiseg_tpu/ops/conv9.py::_conv9_kernel (entry conv9)        — L = 1
-//   wsiseg_tpu/ops/conv9.py::_chain_kernel (entry conv_chain)   — L = 1..3,
-//       "full" border mode: between layers, positions outside the true
-//       (H, W) image are re-zeroed, so each layer sees per-layer SAME zero
-//       padding exactly as an unfused stack of convs does
-//   wsiseg_tpu/ops/pallas_conv.py::_head_kernel (entry conv3x3_small) — L =
-//       1, f32 output, no ReLU
-// The TPU kernels' 128-lane channel padding and their Mosaic mask modes are
+// Replaces wsiseg_tpu/ops/conv9.py::_chain_kernel (entry conv_chain) for
+// L = 2, 3, in its "full" border mode: between layers, positions outside
+// the true (H, W) image are re-zeroed, so each layer sees per-layer SAME
+// zero padding exactly as an unfused stack of convs does. A single conv
+// (conv9, conv3x3_small, a one-layer conv_chain) runs conv3x3_sm90.cu.
+// The TPU kernel's 128-lane channel padding and its Mosaic mask modes are
 // not carried over: channel counts are padded to the MMA tile inside this
 // kernel, in shared memory, never in device memory.
 //
@@ -38,9 +35,8 @@
 // register tile per pass. Row strides are padded by 8 bf16 so that the
 // 32-bit fragment loads of a warp hit 32 distinct banks. This first
 // version does not overlap loads with math inside a block (no multi-stage
-// cp.async / TMA pipeline; a single conv runs two blocks per SM instead)
-// and uses mma.sync rather than wgmma, so it sits well below the
-// tensor-core bound.
+// cp.async / TMA pipeline) and uses mma.sync rather than wgmma, so it sits
+// well below the tensor-core bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -177,13 +173,12 @@ __device__ void load_window(__nv_bfloat16* xin, const __nv_bfloat16* x,
   }
 }
 
-// A single conv (L = 1) covers its 8 × 16 tile in one pass and keeps half
-// the accumulators, so two blocks fit on an SM; a chain needs a second pass
-// for the halo of its inner layers.
+// A chain covers its 8 × 16 tile plus the inner layers' halo in two
+// passes over M.
 template <int L, bool OUT_F32>
-__global__ void __launch_bounds__(THREADS, L == 1 ? 2 : 1)
+__global__ void __launch_bounds__(THREADS, 1)
 conv_chain_kernel(const Params p) {
-  constexpr int MP = L == 1 ? 1 : 2;      // passes over M (≤ 256 rows)
+  constexpr int MP = 2;                   // passes over M (≤ 256 rows)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* wbuf = smem;
@@ -372,14 +367,15 @@ extern "C" int wsiseg_conv3x3_smem_bytes(int nlayers, int c0, int c1,
 // c_{nlayers-1}) is f32 when out_f32, else bf16, allocated by the caller.
 // Launches on `stream`, on the calling thread's current device, without
 // synchronising, and returns a CUDA error code (0 = launched;
-// cudaErrorInvalidValue when the chain does not fit in shared memory).
+// cudaErrorInvalidValue for nlayers outside 2..3 or when the chain does
+// not fit in shared memory).
 extern "C" int wsiseg_conv3x3_chain(const void* x, int n, int h, int w,
                                     int cin, int nlayers, const void* w0,
                                     const void* b0, int c0, const void* w1,
                                     const void* b1, int c1, const void* w2,
                                     const void* b2, int c2, int relu_mask,
                                     int out_f32, void* out, void* stream) {
-  if (nlayers < 1 || nlayers > MAXL) return (int)cudaErrorInvalidValue;
+  if (nlayers < 2 || nlayers > MAXL) return (int)cudaErrorInvalidValue;
   Params p;
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.out = out;
@@ -399,8 +395,6 @@ extern "C" int wsiseg_conv3x3_chain(const void* x, int n, int h, int w,
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (nlayers * 2 + (out_f32 ? 1 : 0)) {
-    case 2: return launch_chain<1, false>(p, n, smem, s);
-    case 3: return launch_chain<1, true>(p, n, smem, s);
     case 4: return launch_chain<2, false>(p, n, smem, s);
     case 5: return launch_chain<2, true>(p, n, smem, s);
     case 6: return launch_chain<3, false>(p, n, smem, s);

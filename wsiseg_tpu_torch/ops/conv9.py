@@ -11,12 +11,15 @@
 - :func:`conv3x3_small` — ``conv3x3_small`` (``pallas_conv.py:43``, body
   ``_head_kernel`` ``:28``): one conv + bias, f32 out, no ReLU.
 
-All three launch one templated CUDA kernel, ``csrc/conv3x3.cu`` (built
-with the stem by :func:`wsiseg_tpu_torch.ops.stem.build_library`), and
-count their launches apart in ``LAUNCHES``. On the card the kernel takes
-bf16 activations and weights, the serving dtype; an f32 activation on a
-CUDA tensor raises ``ValueError`` (the ``*_ref`` plain versions run f32 on
-the CPU). CPU tensors take the plain versions.
+On a CUDA tensor a single conv (``conv9``, ``conv3x3_small``, a
+one-layer ``conv_chain``) launches the TMA/wgmma kernel of
+``csrc/conv3x3_sm90.cu`` with the tile plan of :func:`plan_conv9`; a chain
+of 2–3 layers launches ``csrc/conv3x3.cu``. Both are built with the stem
+by :func:`wsiseg_tpu_torch.ops.stem.build_library`; the wrappers count
+their launches apart in ``LAUNCHES``. On the card the kernels take bf16
+activations and weights, the serving dtype; an f32 activation on a CUDA
+tensor raises ``ValueError`` (the ``*_ref`` plain versions run f32 on the
+CPU). CPU tensors take the plain versions.
 
 A layer is ``(w, bias, relu)`` with ``w`` (Cout, 9, Cin), tap ``dy·3 +
 dx``, and ``bias`` (Cout,) f32, as :func:`prep_layer` makes them from an
@@ -29,6 +32,8 @@ channel padding and the Mosaic mask modes are not carried over.
 from __future__ import annotations
 
 import ctypes
+import math
+from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -38,10 +43,23 @@ from wsiseg_tpu_torch.ops.stem import check_tensor, kernel_entry
 
 #: kernel launches per wrapper since import (or since a caller reset them)
 LAUNCHES = {"conv9": 0, "conv_chain": 0, "conv3x3_small": 0}
+#: zero-padding copies made for a single conv whose Cin is not a multiple
+#: of 8 (TMA needs 16-byte strides); no fold layer needs one
+CHANNEL_PAD_COPIES = 0
 
 #: shared memory a block may use on an H100
 MAX_SMEM = 232448
 MAX_LAYERS = 3
+
+# conv3x3_sm90.cu's tile: 128 output pixels (1 × 128 or 2 × 64; 256 for
+# BN = 128) × BN channels, K chunks of 64 input channels (one 128-byte
+# swizzled row per pixel)
+TILE_PX = 128
+K_STEP = 64
+TILE_COLS = (128, 64)
+N_TILES = (16, 32, 64, 128, 256)
+ERRORS = {9001: "cuTensorMapEncodeTiled not found in the CUDA driver",
+          9002: "the CUDA driver refused a tensor map"}
 
 Layer = Tuple[torch.Tensor, torch.Tensor, bool]
 
@@ -116,18 +134,170 @@ def conv3x3_small_ref(x: torch.Tensor, kernel: torch.Tensor,
     return conv9_ref(x, w, b, relu=False, out_dtype=torch.float32)
 
 
-def _launch(x: torch.Tensor, layers: Sequence[Layer],
-            out_dtype: torch.dtype, ref_name: str) -> torch.Tensor:
-    """Run the CUDA chain kernel on NHWC ``x``; raises on what it does not
-    take."""
+@dataclass(frozen=True)
+class ConvPlan:
+    """How ``conv3x3_sm90.cu`` covers one conv: tiles of ``tr × tc``
+    output pixels (128; 256 for ``bn = 128``, two m64 tiles per consumer
+    warpgroup) and ``bn`` output channels, K in 64-channel chunks of 9
+    taps. Each of ``stages`` ring stages holds one tap's ``bn × 64``
+    weight box and, for ``bn ≥ 128``, the tap's shifted ``tr × tc × 64``
+    x box; for ``bn ≤ 64`` one ``(tr + 2) × (tc + 2) × 64`` halo window
+    per chunk serves all nine taps (``window``)."""
+    n: int
+    h: int
+    w: int
+    cin: int
+    cout: int
+    cin_pad: int        # Cin rounded up to 8: TMA's strides are 16-byte
+    tr: int
+    tc: int
+    bn: int
+    stages: int
+
+    @property
+    def tiles_x(self) -> int:
+        return -(-self.w // self.tc)
+
+    @property
+    def tiles_y(self) -> int:
+        return -(-self.h // self.tr)
+
+    @property
+    def n_tiles(self) -> int:
+        return -(-self.cout // self.bn)
+
+    @property
+    def tiles(self) -> int:
+        """Output tiles; a persistent grid of at most one block per free
+        block slot of each SM walks them."""
+        return self.n * self.tiles_y * self.tiles_x * self.n_tiles
+
+    @property
+    def k_steps(self) -> int:
+        return 9 * -(-self.cin_pad // K_STEP)
+
+    @property
+    def window(self) -> bool:
+        return self.bn <= 64
+
+    @property
+    def x_box(self) -> Tuple[int, int, int, int]:
+        """The NHWC x box TMA loads: the halo window of a chunk, or one
+        tap's shifted tile."""
+        halo = 2 if self.window else 0
+        return 1, self.tr + halo, self.tc + halo, K_STEP
+
+    @property
+    def stage_bytes(self) -> int:
+        x = 0 if self.window else math.prod(self.x_box) * 2
+        return x + self.bn * K_STEP * 2
+
+    @property
+    def smem_bytes(self) -> int:
+        # every stage starts on the swizzle's 1024-byte period: + 1024 to
+        # align the first
+        win = -(-math.prod(self.x_box) * 2 // 1024) * 1024 \
+            if self.window else 0
+        return win + self.stages * self.stage_bytes + 1024
+
+
+def plan_conv9(n: int, h: int, w: int, cin: int, cout: int) -> ConvPlan:
+    """The tile plan of one SAME 3×3 conv of an (n, h, w, cin) input to
+    ``cout`` channels. ``bn`` is the smallest wgmma width that holds Cout,
+    at most 256 (wider Couts take more N tiles); a tile is 128 pixels, 256
+    for BN = 128. The strip width ``tc`` (128 or 64: each consumer
+    warpgroup's 64-pixel m64 tiles lie in one window row) is the one that
+    computes the fewest pixels, the wider on a tie. BN ≤ 64 fits two
+    blocks per SM; BN = 128 and 256 fill one SM's shared memory with 4
+    stages."""
+    if min(n, h, w, cin, cout) < 1:
+        raise ValueError(f"empty conv: n={n} h={h} w={w} cin={cin} "
+                         f"cout={cout}")
+    bn = next((b for b in N_TILES if b >= cout), N_TILES[-1])
+    px = 2 * TILE_PX if bn == 128 else TILE_PX
+
+    def computed(tc):
+        tr = px // tc
+        return -(-w // tc) * tc * -(-h // tr) * tr
+
+    tc = min(TILE_COLS, key=lambda c: (computed(c), -c))
+    stages = {16: 8, 32: 4, 64: 4, 128: 4, 256: 4}[bn]
+    plan = ConvPlan(n, h, w, cin, cout, 8 * math.ceil(cin / 8), px // tc,
+                    tc, bn, stages)
+    if plan.smem_bytes > MAX_SMEM:
+        raise ValueError(f"{plan} needs {plan.smem_bytes} bytes of shared "
+                         f"memory per block, over {MAX_SMEM}")
+    return plan
+
+
+def pad_channels(x: torch.Tensor, w: torch.Tensor, cin_pad: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (N, H, W, Cin) and w (Cout, 9, Cin) with zero channels appended up
+    to ``cin_pad``: the same conv, with 16-byte channel strides. A copy of
+    both; counted in ``CHANNEL_PAD_COPIES``."""
+    global CHANNEL_PAD_COPIES
+    extra = cin_pad - x.shape[-1]
+    CHANNEL_PAD_COPIES += 1
+    return (F.pad(x, (0, extra)).contiguous(),
+            F.pad(w, (0, extra)).contiguous())
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with a 16-byte aligned base (TMA's rule)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check_bf16(x: torch.Tensor, out_dtype: torch.dtype,
+                ref_name: str) -> None:
     if x.dtype != torch.bfloat16:
-        raise ValueError(f"the conv3x3 kernel takes bf16 activations on the "
+        raise ValueError(f"the conv3x3 kernels take bf16 activations on the "
                          f"card, got {x.dtype}; {ref_name} is the plain "
                          "version for other dtypes")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype must be bf16 or f32, got {out_dtype}")
-    if not 1 <= len(layers) <= MAX_LAYERS:
-        raise ValueError(f"1..{MAX_LAYERS} layers, got {len(layers)}")
+
+
+def _launch_sm90(x: torch.Tensor, layer: Layer, out_dtype: torch.dtype,
+                 ref_name: str) -> torch.Tensor:
+    """Run conv3x3_sm90.cu on NHWC ``x``; raises on what it does not
+    take."""
+    _check_bf16(x, out_dtype, ref_name)
+    wl, bl, relu = layer
+    n, h, w, cin = x.shape
+    dev = x.device
+    cout = wl.shape[0]
+    check_tensor(wl, "weights", torch.bfloat16, (cout, 9, cin), dev)
+    check_tensor(bl, "bias", torch.float32, (cout,), dev)
+    plan = plan_conv9(n, h, w, cin, cout)
+    if plan.cin_pad != cin:
+        x, wl = pad_channels(x, wl, plan.cin_pad)
+    x, wl = _aligned(x), _aligned(wl)
+    out = torch.empty((n, h, w, cout), dtype=out_dtype, device=dev)
+    fn = kernel_entry("wsiseg_conv9_sm90",
+                      [ctypes.c_void_p] + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                      + [ctypes.c_void_p] + [ctypes.c_int] * 5
+                      + [ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        err = fn(x.data_ptr(), n, h, w, plan.cin_pad, wl.data_ptr(),
+                 bl.data_ptr(), cout, int(bool(relu)),
+                 int(out_dtype == torch.float32), out.data_ptr(), plan.tr,
+                 plan.tc, plan.bn, plan.stages, plan.smem_bytes,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv3x3_sm90 kernel launch failed: "
+                           f"{ERRORS.get(err, f'CUDA error {err}')}")
+    return out
+
+
+def _launch(x: torch.Tensor, layers: Sequence[Layer],
+            out_dtype: torch.dtype, ref_name: str) -> torch.Tensor:
+    """Run the CUDA chain kernel (conv3x3.cu, 2..3 layers) on NHWC ``x``;
+    raises on what it does not take."""
+    _check_bf16(x, out_dtype, ref_name)
+    if not 2 <= len(layers) <= MAX_LAYERS:
+        raise ValueError(f"2..{MAX_LAYERS} layers, got {len(layers)}")
     n, h, w, cin = x.shape
     dev = x.device
     x = x.contiguous()
@@ -171,7 +341,11 @@ def _run(name: str, ref, x: torch.Tensor, layers: Sequence[Layer],
         return ref(x, layers, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no conv3x3 kernel for device {x.device}")
-    y = _launch(_batched(x), layers, out_dtype, f"{name}_ref")
+    xb = _batched(x)
+    if len(layers) == 1:
+        y = _launch_sm90(xb, layers[0], out_dtype, f"{name}_ref")
+    else:
+        y = _launch(xb, layers, out_dtype, f"{name}_ref")
     LAUNCHES[name] += 1
     return y[0] if x.dim() == 3 else y
 
@@ -182,7 +356,7 @@ def conv9(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     """SAME 3×3/1 conv of x ((N,) H, W, Cin NHWC) with prepared weights
     (:func:`prep_layer`): ``conv(x, w) + bias``, optional ReLU, f32
     accumulation, rounded to ``out_dtype``. CPU tensors take
-    :func:`conv9_ref`; CUDA tensors launch the kernel with L = 1."""
+    :func:`conv9_ref`; CUDA tensors launch ``conv3x3_sm90.cu``."""
     return _run("conv9", lambda x_, ls, od: conv9_ref(x_, *ls[0], od), x,
                 [(w, bias, relu)], out_dtype)
 
@@ -193,7 +367,7 @@ def conv_chain(x: torch.Tensor, layers: Sequence[Layer],
     ``(w, bias, relu)`` from :func:`prep_layer`; intermediates in x's dtype
     and re-zeroed outside the image, only the last layer is written, in
     ``out_dtype``. CPU tensors take :func:`conv_chain_ref`; CUDA tensors
-    launch the kernel."""
+    launch ``conv3x3.cu`` (one layer: ``conv3x3_sm90.cu``)."""
     return _run("conv_chain", conv_chain_ref, x, layers, out_dtype)
 
 
@@ -201,8 +375,8 @@ def conv3x3_small(x: torch.Tensor, kernel: torch.Tensor,
                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """SAME 3×3 conv + bias with an f32 output and no ReLU; ``kernel`` is
     HWIO (3, 3, Cin, Cout) and takes x's dtype. CPU tensors take
-    :func:`conv3x3_small_ref`; CUDA tensors launch the kernel with
-    L = 1."""
+    :func:`conv3x3_small_ref`; CUDA tensors launch
+    ``conv3x3_sm90.cu``."""
     w, b = prep_layer(kernel, None, bias, x.dtype)
     return _run("conv3x3_small",
                 lambda x_, ls, od: conv9_ref(x_, *ls[0], od), x,

@@ -51,6 +51,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+#: per-source compile only: ptxas's register / shared-memory / spill report
+#: goes to ``_build/<source>_<key>.log`` (:func:`ptxas_report`)
+PTXAS_VERBOSE = ("-Xptxas", "-v")
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -140,20 +143,25 @@ def stem_pool_conv_ref(img_u8: torch.Tensor, w_folded: torch.Tensor,
 
 
 def _source_key(sources) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + PTXAS_VERBOSE).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
+def _build_key() -> str:
+    return _source_key(sorted(CSRC.glob("*.cu"))
+                       + sorted(CSRC.glob("*.cuh")))
+
+
 def build_library() -> Path:
-    """Compile ``csrc/*.cu`` into ``_build/`` (once per source/flag hash,
-    under a file lock so concurrent processes do not race): one ``nvcc``
-    per source, all started together, then one link. Raises with nvcc's
-    stderr if a step fails."""
+    """Compile ``csrc/*.cu`` (which include ``csrc/*.cuh``) into
+    ``_build/`` (once per source/flag hash, under a file lock so concurrent
+    processes do not race): one ``nvcc`` per source, all started together,
+    then one link. Raises with nvcc's stderr if a step fails."""
     sources = sorted(CSRC.glob("*.cu"))
-    key = _source_key(sources)
+    key = _build_key()
     out = BUILD_DIR / f"libwsiseg_kernels_{key}.so"
     if out.exists():
         return out
@@ -166,22 +174,31 @@ def build_library() -> Path:
         objs = [BUILD_DIR / f"{src.stem}_{key}.o" for src in sources]
         procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True))
-                 for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
-                              str(src)] for src, obj in zip(sources, objs))]
+                 for cmd in ([nvcc, *NVCC_FLAGS, *PTXAS_VERBOSE, "-c", "-o",
+                              str(obj), str(src)]
+                             for src, obj in zip(sources, objs))]
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                 *map(str, objs)]
-        for cmd, proc in procs:
+        for src, (cmd, proc) in zip(sources, procs):
             _, err = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}): "
                                    f"{' '.join(cmd)}\n{err}")
+            (BUILD_DIR / f"{src.stem}_{key}.log").write_text(err)
         r = subprocess.run(link, capture_output=True, text=True)
         if r.returncode != 0:
             raise RuntimeError(f"nvcc failed ({r.returncode}): "
                                f"{' '.join(link)}\n{r.stderr}")
         os.replace(tmp, out)
     return out
+
+
+def ptxas_report(source: str) -> str:
+    """ptxas's ``-v`` report (registers, shared memory, spills per kernel)
+    from the last build of ``csrc/<source>.cu``."""
+    build_library()
+    return (BUILD_DIR / f"{source}_{_build_key()}.log").read_text()
 
 
 def _library():

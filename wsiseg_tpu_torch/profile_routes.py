@@ -11,7 +11,8 @@ bench geometry (a 4096×3072 level-2 synthetic slide, resnet18 Unet,
   postprocess + label packing), median of ``--iters``;
 - ``torch.profiler`` over ``--iters`` steady engine runs: wall ms, summed
   kernel ms, the device's busy share, and kernel ms by class — the port's
-  own kernels (``stem_kernel``, ``conv_chain_kernel``), library
+  own kernels (``stem_kernel``, ``conv9_sm90_kernel``,
+  ``conv_chain_kernel``), library
   convolutions and GEMMs, and everything else (eager elementwise passes,
   copies, reductions);
 - peak device memory of one run.
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 BENCH_HW = (3072, 4096)
-OWN = ("stem_kernel", "conv_chain_kernel")
+OWN = ("stem_kernel", "conv9_sm90_kernel", "conv_chain_kernel")
 LIBRARY = ("conv", "cudnn", "xmma", "gemm", "cutlass", "implicit")
 
 
