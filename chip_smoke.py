@@ -4,14 +4,17 @@
 
 Builds every CUDA kernel from ``wsiseg_tpu_torch/csrc`` (one ``nvcc`` per
 source, all started together), prints ptxas's register/spill report of
-the TMA/wgmma conv (``csrc/conv3x3_sm90.cu``) and its ``HGMMA`` and
-``UTMALDG`` instruction counts from ``cuobjdump -sass``, and holds each
-kernel against its plain PyTorch version on the card at the serving
-path's shapes and batches and at a ragged shape: the two stem modes (K1
-``stem_pool_conv``, K2 ``stem_conv``), the single conv (K3 ``conv9``, K5
+the TMA/wgmma conv (``csrc/conv3x3_sm90.cu``) and of the wgmma stem
+(``csrc/stem_sm90.cu``) and their ``HGMMA`` (and the conv's ``UTMALDG``)
+instruction counts from ``cuobjdump -sass``, and holds each kernel
+against its plain PyTorch version on the card at the serving path's
+shapes and batches and at ragged shapes: the two stem modes (K1
+``stem_pool_conv``, K2 ``stem_conv``, ``stem_sm90.cu``; K2 also at a
+width with W % 4 == 2), the single conv (K3 ``conv9``, K5
 ``conv3x3_small``, ``conv3x3_sm90.cu``) and the fused chain (K4
 ``conv_chain``, ``conv3x3.cu``); then the Hopper probes of
-``wsiseg_tpu_torch.probes`` once each against their plain versions, and
+``wsiseg_tpu_torch.probes`` (the conv's P2a/P2b, the stem's P1 assembly
+forms and P2c pool epilogue) once each against their plain versions, and
 timed. Then it drives the port's paths with every launch count set to 0
 just before and read just after:
 
@@ -52,7 +55,8 @@ import torch.nn.functional as F
 from PIL import Image
 
 from wsiseg_tpu_torch.data.bench_slide import level2_image
-from wsiseg_tpu_torch.probes import bound, cuda_ms
+from wsiseg_tpu_torch.probes import (bound, cuda_ms, stem_cost,
+                                     stem_library_call, stem_weights)
 
 BENCH_HW = (3072, 4096)          # level-2 (H, W) of the bench geometry
 RAGGED_HW = (96, 256)
@@ -139,9 +143,10 @@ def sass_counts(lib, kernel: str) -> dict:
     return counts
 
 
-def ptxas_lines(report: str, kernel: str) -> list:
+def ptxas_lines(report: str, kernel: str, tag_re: str, tag_fmt: str) -> list:
     """ptxas -v's registers, spills and shared memory per instantiation
-    of ``kernel``."""
+    of ``kernel``, each tagged by its template arguments (``tag_re``'s
+    groups into ``tag_fmt``)."""
     out, name, spill = [], None, ""
     for line in report.splitlines():
         if "Compiling entry function" in line:
@@ -149,9 +154,8 @@ def ptxas_lines(report: str, kernel: str) -> list:
         elif name and "spill" in line:
             spill = line.strip()
         elif name and "registers" in line:
-            args = re.search(r"ILi(\d+)ELb([01])E", name)
-            tag = (f"BN={args.group(1)} f32_out={args.group(2)}" if args
-                   else name)
+            args = re.search(tag_re, name)
+            tag = tag_fmt.format(*args.groups()) if args else name
             out.append(f"{tag}: {line.split(':', 1)[1].strip()}; {spill}")
             name = None
     return out
@@ -164,48 +168,33 @@ def phase_build() -> dict:
     stem._library()
     print(f"[2] built {lib.name} in {time.time() - t0:.2f} s", flush=True)
     for line in ptxas_lines(stem.ptxas_report("conv3x3_sm90"),
-                            "conv9_sm90_kernel"):
+                            "conv9_sm90_kernel", r"ILi(\d+)ELb([01])E",
+                            "BN={} f32_out={}"):
         print(f"[2] ptxas conv9_sm90_kernel {line}", flush=True)
     counts = sass_counts(lib, "conv9_sm90_kernel")
     print(f"[2] cuobjdump -sass conv9_sm90_kernel (all instantiations): "
           f"{counts}", flush=True)
     assert all(counts.values()), f"conv9_sm90_kernel lacks {counts}"
+    for line in ptxas_lines(stem.ptxas_report("stem_sm90"),
+                            "stem_sm90_kernel", r"ILi(\d)ELb([01])E",
+                            "form={} pool={}"):
+        print(f"[2] ptxas stem_sm90_kernel {line}", flush=True)
+    stem_counts = sass_counts(lib, "stem_sm90_kernel")
+    print(f"[2] cuobjdump -sass stem_sm90_kernel (all instantiations): "
+          f"{stem_counts}", flush=True)
+    assert stem_counts["HGMMA"] > 0, \
+        f"stem_sm90_kernel is not on tensor cores: {stem_counts}"
     return counts
 
 
-def _stem_weights(dev):
-    from wsiseg_tpu_torch.ops import stem
-    r = np.random.RandomState(0)
-    kernel = torch.from_numpy(r.randn(64, 3, 7, 7).astype(np.float32) * 0.05)
-    vecs = [torch.from_numpy(v.astype(np.float32)) for v in (
-        r.rand(64) + 0.5, r.randn(64) * 0.1, r.randn(64) * 0.1,
-        r.rand(64) + 0.5)]
-    return stem.fold_stem_weights(kernel.to(dev), *(v.to(dev) for v in vecs),
-                                  MEAN, STD)
-
-
-def _stem_library_call(x: torch.Tensor, w, b, pad):
-    """The yardstick: one bf16 channels_last ``F.conv2d`` of the stem's
-    7×7/2 conv (+ bias) on the pre-padded image; normalize is folded into
-    the weights, the u8 → bf16 cast and ReLU/pool are not in it."""
-    n, h, wd, _ = x.shape
-    canvas = torch.tensor(pad, dtype=torch.bfloat16, device=x.device).view(
-        1, 3, 1, 1).repeat(n, 1, h + 6, wd + 6)
-    canvas[:, :, 3:3 + h, 3:3 + wd] = x.permute(0, 3, 1, 2)
-    canvas = canvas.contiguous(memory_format=torch.channels_last)
-    k = w.permute(3, 2, 0, 1).contiguous(
-        memory_format=torch.channels_last)
-    bb = b.to(torch.bfloat16)
-    return lambda: F.conv2d(canvas, k, bb, stride=2)
-
-
 def phase_stems(dev) -> dict:
-    """K1 and K2 against their plain versions on the card: one
-    bench-geometry slide, a group of GROUP different slides in one launch,
-    and a ragged size."""
+    """K1 and K2 (``stem_sm90.cu``) against their plain versions on the
+    card: one bench-geometry slide, a group of GROUP different slides in one
+    launch, a ragged size, and for K2 a width with W % 4 == 2."""
     from wsiseg_tpu_torch.ops import stem
 
-    w, b = _stem_weights(dev)
+    w, b = stem_weights(dev)
+    cells = stem.prepare_stem_cells(w)
     pad = stem.pad_value(MEAN)
     r = np.random.RandomState(0)
     # the group is what one launch gets under the CLI's default
@@ -215,6 +204,8 @@ def phase_stems(dev) -> dict:
         "bench": group[:1],
         "bench_group": group,
         "ragged": [r.randint(0, 256, (*RAGGED_HW, 3)).astype(np.uint8)],
+        "w_mod4_2": [r.randint(0, 256, (100, 262, 3)).astype(np.uint8)
+                     for _ in range(2)],
     }
     kernels = {"stem_pool_conv": (stem.stem_pool_conv,
                                   stem.stem_pool_conv_ref),
@@ -224,14 +215,16 @@ def phase_stems(dev) -> dict:
         x = torch.from_numpy(np.stack(imgs)).to(dev)
         n, h, wd = x.shape[:3]
         for name, (kern, ref) in kernels.items():
-            got, want = kern(x, w, b, pad), ref(x, w, b, pad)
+            if case == "w_mod4_2" and name == "stem_pool_conv":
+                continue
+            got, want = kern(x, w, b, pad, cells), ref(x, w, b, pad)
             torch.cuda.synchronize()
             if name == "stem_conv":
                 got, want = [got], [want]
             err = max(assert_close(g, rf) for g, rf in zip(got, want))
-            ms = cuda_ms(lambda: kern(x, w, b, pad))
+            ms = cuda_ms(lambda: kern(x, w, b, pad, cells))
             plain_ms = cuda_ms(lambda: ref(x, w, b, pad))
-            lib_ms = cuda_ms(_stem_library_call(x, w, b, pad))
+            lib_ms = cuda_ms(stem_library_call(x, w, b, pad))
             print(f"[3] {name} {case} {n}x{h}x{wd}: max|d| {err:.6g} (tol "
                   f"{TOL:.6g}·max|ref|), kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, F.conv2d {lib_ms:.4f} ms",
@@ -239,12 +232,9 @@ def phase_stems(dev) -> dict:
             out[name][case] = {"max_abs_err": err, "ms": ms,
                                "plain_ms": plain_ms, "library_ms": lib_ms}
     # bound of one bench slide: u8 image in, weights, outputs out
-    h, wd = BENCH_HW
-    flops = 2.0 * (h // 2) * (wd // 2) * 147 * 64
-    inb = h * wd * 3 + 147 * 64 * 2 + 64 * 4
-    c1b = (h // 2) * (wd // 2) * 64 * 2
-    out["stem_pool_conv"]["bound"] = bound(flops, inb + c1b + c1b / 4)
-    out["stem_conv"]["bound"] = bound(flops, inb + c1b)
+    for name in kernels:
+        out[name]["bound"] = bound(*stem_cost(*BENCH_HW,
+                                              name == "stem_pool_conv"))
     return out
 
 
@@ -549,7 +539,8 @@ def phase_fold_chain(dev) -> dict:
                       torch.bfloat16, fold=True)
     img = torch.from_numpy(level2_image(*BENCH_HW, seed=30))[None].to(dev)
     with torch.no_grad():
-        c1 = stem.stem_conv(img, fw.stem_w, fw.stem_b, fw.pad_rgb)
+        c1 = stem.stem_conv(img, fw.stem_w, fw.stem_b, fw.pad_rgb,
+                            fw.stem_cells)
         feats = encode_stages(fw.enc, None, fw.dtype,
                               c1=c1.permute(0, 3, 1, 2))
         reset_counts()
@@ -619,8 +610,9 @@ def main() -> None:
                 "conv3x3_small": head["conv3x3_small"]}
     launches.update({k: v["launches"] for k, v in prb.items()})
     rows = [
-        ("stem_pool_conv", "stem.cu", "wsiseg_tpu/ops/pallas_stem.py:244"),
-        ("stem_conv", "stem.cu", "wsiseg_tpu/ops/pallas_stem.py:79"),
+        ("stem_pool_conv", "stem_sm90.cu",
+         "wsiseg_tpu/ops/pallas_stem.py:244"),
+        ("stem_conv", "stem_sm90.cu", "wsiseg_tpu/ops/pallas_stem.py:79"),
         ("conv9", "conv3x3_sm90.cu", "wsiseg_tpu/ops/conv9.py:49"),
         ("conv_chain", "conv3x3.cu", "wsiseg_tpu/ops/conv9.py:175"),
         ("conv3x3_small", "conv3x3_sm90.cu",
@@ -629,6 +621,8 @@ def main() -> None:
         ("probe_load", "probes.cu", "scripts/probe_dot2.py:58"),
         ("probe_store", "probes.cu", "scripts/probe_dot3.py:39"),
         ("probe_window", "probes.cu", "scripts/probe_dma64.py:35"),
+        ("probe_stem_assembly", "stem_sm90.cu", "scripts/exp_r6e.py:43"),
+        ("probe_pool_epilogue", "probes.cu", "scripts/probe_retile.py:28"),
     ]
     kernels = []
     for name, src, replaces in rows:

@@ -1,5 +1,6 @@
 """Tests of the port that need an NVIDIA GPU (marker ``cuda``): each CUDA
-kernel (both stem modes; the TMA/wgmma single conv as conv9,
+kernel (both stem modes in each A-operand assembly form; the stem probes
+5 and 6; the TMA/wgmma single conv as conv9,
 conv3x3_small and a one-layer conv_chain; the fused chain as conv_chain)
 against its plain PyTorch version, and the engine's kernel path (GPU)
 against its plain path (CPU) on the default and the fold route.
@@ -74,7 +75,7 @@ def _close(got, ref):
 
 
 @pytest.mark.parametrize("shape", [(1, 96, 256), (2, 100, 262),
-                                   (4, 3072, 4096)])
+                                   (1, 3072, 4096), (4, 3072, 4096)])
 def test_native_stem_kernel_matches_plain(cuda_device, shape):
     n, h, w = shape
     img = torch.from_numpy(np.random.RandomState(w).randint(
@@ -86,6 +87,63 @@ def test_native_stem_kernel_matches_plain(cuda_device, shape):
     assert stem.STEM_CONV_LAUNCHES == before + 1
     assert got.shape == (n, h // 2, w // 2, 64)
     _close(got, stem.stem_conv_ref(img, wf, bias, stem.pad_value(MEAN)))
+
+
+@pytest.mark.parametrize("form", stem.FORMS)
+@pytest.mark.parametrize("shape,pool", [
+    ((1, 96, 256), True), ((2, 100, 260), True), ((1, 8, 1000), True),
+    ((1, 96, 256), False), ((2, 100, 262), False), ((1, 10, 26), False)])
+def test_stem_forms_match_plain(cuda_device, form, shape, pool):
+    """Every assembly form of csrc/stem_sm90.cu, both modes, ragged widths
+    (W/4 not a multiple of 63 or 64, W % 4 == 2 in native mode)."""
+    n, h, w = shape
+    img = torch.from_numpy(np.random.RandomState(w).randint(
+        0, 256, (n, h, w, 3)).astype(np.uint8)).to(cuda_device)
+    wf, bias = _folded(cuda_device)
+    cells = stem.prepare_stem_cells(wf)
+    pad = stem.pad_value(MEAN)
+    got = stem.launch_cells(img, cells, bias, pad, pool, form)
+    torch.cuda.synchronize()
+    if pool:
+        for g, r in zip(got, stem.stem_pool_conv_ref(img, wf, bias, pad)):
+            _close(g, r)
+    else:
+        _close(got, stem.stem_conv_ref(img, wf, bias, pad))
+
+
+def test_probe_stem_assembly_bit_identical(cuda_device):
+    """Probe 5 (P1): the three forms' outputs are bit-identical."""
+    from wsiseg_tpu_torch import probes
+    img = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 255, (1, 200, 520, 3), np.uint8)).to(cuda_device)
+    wf, bias = _folded(cuda_device)
+    cells = stem.prepare_stem_cells(wf)
+    pad = stem.pad_value(MEAN)
+    outs = [probes.probe_stem_assembly(img, cells, bias, pad, f)
+            for f in stem.FORMS]
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(out, outs[0]))
+    for g, r in zip(outs[0], stem.stem_pool_conv_ref(img, wf, bias, pad)):
+        _close(g, r)
+
+
+@pytest.mark.parametrize("shape,shift", [((1, 128, 128), 0),
+                                         ((1, 128, 128), 1),
+                                         ((3, 320, 128), 1)])
+@pytest.mark.parametrize("staged", [False, True])
+def test_probe_pool_epilogue_matches_plain(cuda_device, shape, shift,
+                                           staged):
+    """Probe 6 (P2c) at probe_retile's (128, 128) and over several tiles."""
+    from wsiseg_tpu_torch import probes
+    r = np.random.RandomState(shape[1])
+    x = torch.from_numpy(r.rand(*shape).astype(np.float32)).to(
+        cuda_device).to(torch.bfloat16)
+    m = torch.ones(shape[1], dtype=torch.bfloat16, device=cuda_device)
+    m[0] = 0
+    got = probes.probe_pool_epilogue(x, m, shift, staged)
+    for g, w in zip(got, probes.probe_pool_epilogue_ref(x, m, shift)):
+        assert torch.equal(g, w)
 
 
 def _layers(device, chans, last_relu=True, seed=0):

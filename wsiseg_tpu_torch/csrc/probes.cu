@@ -23,8 +23,21 @@
 //    (N, H + 2, W + 2, 64): zero fill for the border and for the channels
 //    past C.
 //
-// Bounds (arithmetic): probe 1 by the bf16 tensor cores; probes 2-4 by the
-// bytes each must move (2: the input once, 3: the output, 4: both).
+// 6. The fused stem-pool epilogue's primitives (probe_retile) on wgmma
+//    accumulator fragments of the stem's cell form (stem_sm90.cu): a row of
+//    cells × 128 values (two 64-value column parities e, o), each 64-cell
+//    tile loaded into the m64n128 accumulator layout, copied out through a
+//    staged row, and p = max(max(prev·m, e), o) with prev = o of the same
+//    cell (shift 0, probe_retile's function) or of the cell before (shift 1,
+//    the stem pool's column shift, zero before the row's first cell). The
+//    shift by shuffles (4 lanes up inside an 8-row group, the other
+//    half-row for row 8, shared memory across warps and from tile to tile)
+//    or by staging the tile's whole o half through shared memory.
+//    (Probe 5, P1, runs stem_sm90.cu itself in its three assembly forms.)
+//
+// Bounds (arithmetic): probe 1 by the bf16 tensor cores; probes 2-4 and 6 by
+// the bytes each must move (2: the input once, 3: the output, 4 and 6:
+// both).
 
 #include "sm90.cuh"
 
@@ -298,6 +311,142 @@ probe_window_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
+// ---- 6: the pool epilogue's primitives ----------------------------------
+
+__device__ __forceinline__ uint32_t bf16x2_max(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 r =
+      __hmax2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+              *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 r =
+      __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+              *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+__device__ __forceinline__ uint32_t bf16x2_pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+constexpr int OST_WORDS = 36;         // a staged o row: 32 pairs + 4 pad
+
+// one block (one warpgroup) per row of `cells` cells, 64-cell tiles in turn
+template <bool STAGED>
+__global__ void __launch_bounds__(128)
+probe_pool_kernel(const __nv_bfloat16* __restrict__ x,
+                  const __nv_bfloat16* __restrict__ mask, int cells,
+                  int shift, __nv_bfloat16* __restrict__ o,
+                  __nv_bfloat16* __restrict__ p) {
+  __shared__ __align__(16) unsigned char tile_s[64 * 256];
+  __shared__ __align__(16) unsigned char pool_s[64 * 128];
+  __shared__ uint32_t xw[4 * 4 * 8];
+  __shared__ uint32_t ost[65 * OST_WORDS];   // STAGED: o of cells q0-1 ...
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int quad = lane % 4, r8 = lane / 4;
+  const size_t row = (size_t)blockIdx.x * cells;
+  uint32_t carry[8];                  // shuffles: the last tile's cell 63 o
+#pragma unroll
+  for (int j = 0; j < 8; ++j) carry[j] = 0u;
+  if (STAGED && t < OST_WORDS) ost[t] = 0u;
+  for (int q0 = 0; q0 < cells; q0 += 64) {
+    // the tile, by 16-byte loads, chunk c of cell m at chunk c ^ (m % 8)
+    for (int i = t; i < 64 * 16; i += 128) {
+      const int m = i / 16, c = i % 16;
+      *reinterpret_cast<uint4*>(tile_s + m * 256 + ((c ^ (m & 7)) * 16)) =
+          *reinterpret_cast<const uint4*>(x + (row + q0 + m) * 128 + 8 * c);
+    }
+    __syncthreads();
+    // as accumulator fragments: d[4j + 2h + e] = X[16 warp + r8 + 8h][8j +
+    // 2 quad + e], in f32
+    float d[64];
+    float mq[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = 16 * warp + r8 + 8 * h;
+      mq[h] = __bfloat162float(mask[q0 + m]);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
+            tile_s + m * 256 + ((j ^ r8) * 16) + quad * 4);
+        d[4 * j + 2 * h] = __low2float(v);
+        d[4 * j + 2 * h + 1] = __high2float(v);
+      }
+    }
+    __syncthreads();
+    // the stem's epilogue: round, stage the row, 16-byte stores
+    uint32_t P[16][2];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        P[j][h] = bf16x2_pack(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(tile_s + (16 * warp + r8 + 8 * h) * 256 +
+                                     ((j ^ r8) * 16) + quad * 4) = P[j][h];
+      }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (STAGED) {
+        ost[(16 * warp + r8 + 1) * OST_WORDS + 4 * j + quad] = P[j + 8][0];
+        ost[(16 * warp + r8 + 9) * OST_WORDS + 4 * j + quad] = P[j + 8][1];
+      } else if (r8 == 7) {
+        xw[(warp * 4 + quad) * 8 + j] = P[j + 8][1];
+      }
+    }
+    __syncthreads();
+    for (int i = t; i < 64 * 16; i += 128) {
+      const int m = i / 16, c = i % 16;
+      *reinterpret_cast<uint4*>(o + (row + q0 + m) * 128 + 8 * c) =
+          *reinterpret_cast<const uint4*>(tile_s + m * 256 +
+                                          ((c ^ (m & 7)) * 16));
+    }
+    // p = max(max(prev·m, e), o): e, o the parity halves one thread holds
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t o0 = P[j + 8][0], o1 = P[j + 8][1];
+      uint32_t prev0 = o0, prev1 = o1;
+      if (shift) {
+        if (STAGED) {
+          prev0 = ost[(16 * warp + r8) * OST_WORDS + 4 * j + quad];
+          prev1 = ost[(16 * warp + r8 + 8) * OST_WORDS + 4 * j + quad];
+        } else {
+          const uint32_t up0 = __shfl_up_sync(0xffffffffu, o0, 4);
+          const uint32_t up1 = __shfl_up_sync(0xffffffffu, o1, 4);
+          const uint32_t r7 = __shfl_sync(0xffffffffu, o0, (lane + 28) & 31);
+          const uint32_t xv =
+              warp > 0 ? xw[((warp - 1) * 4 + quad) * 8 + j] : carry[j];
+          prev0 = r8 == 0 ? xv : up0;
+          prev1 = r8 == 0 ? r7 : up1;
+        }
+      }
+      const uint32_t m0 = bf16x2_pack(mq[0], mq[0]);
+      const uint32_t m1 = bf16x2_pack(mq[1], mq[1]);
+      const uint32_t p0 =
+          bf16x2_max(bf16x2_max(bf16x2_mul(prev0, m0), P[j][0]), o0);
+      const uint32_t p1 =
+          bf16x2_max(bf16x2_max(bf16x2_mul(prev1, m1), P[j][1]), o1);
+      *reinterpret_cast<uint32_t*>(pool_s + (16 * warp + r8) * 128 +
+                                   ((j ^ r8) * 16) + quad * 4) = p0;
+      *reinterpret_cast<uint32_t*>(pool_s + (16 * warp + r8 + 8) * 128 +
+                                   ((j ^ r8) * 16) + quad * 4) = p1;
+      // warp 0's row 0 takes the last tile's cell 63 at the next tile
+      if (!STAGED) carry[j] = xw[(3 * 4 + quad) * 8 + j];
+    }
+    __syncthreads();
+    if (STAGED && t < OST_WORDS) ost[t] = ost[64 * OST_WORDS + t];
+    for (int i = t; i < 64 * 8; i += 128) {
+      const int m = i / 8, c = i % 8;
+      *reinterpret_cast<uint4*>(p + (row + q0 + m) * 64 + 8 * c) =
+          *reinterpret_cast<const uint4*>(pool_s + m * 128 +
+                                          ((c ^ (m & 7)) * 16));
+    }
+    __syncthreads();
+  }
+}
+
 int set_smem(const void* kern, int smem) {
   return (int)cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -426,5 +575,27 @@ extern "C" int wsiseg_probe_window(const void* x, int n, int h, int w, int c,
   probe_window_kernel<<<n * tiles_x * tiles_y, 256, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       tm, static_cast<__nv_bfloat16*>(out), h, w, tiles_x, tiles_y);
+  return (int)cudaGetLastError();
+}
+
+// Probe 6. x (rows, cells, 128) bf16 with cells % 64 == 0, mask (cells,)
+// bf16; o (rows, cells, 128) = x, p (rows, cells, 64) = max(max(prev·mask,
+// e), o) with e = x[..., :64], o = x[..., 64:] and prev = o of the same cell
+// (shift 0) or of the cell before, zero before the first (shift 1); the
+// shift by shuffles (staged = 0) or through shared memory (1).
+extern "C" int wsiseg_probe_pool(const void* x, const void* mask, int rows,
+                                 int cells, int shift, int staged, void* o,
+                                 void* p, void* stream) {
+  if (rows < 1 || cells < 64 || cells % 64 != 0 || (shift != 0 && shift != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const __nv_bfloat16* mb = static_cast<const __nv_bfloat16*>(mask);
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(o);
+  __nv_bfloat16* pb = static_cast<__nv_bfloat16*>(p);
+  if (staged)
+    probe_pool_kernel<true><<<rows, 128, 0, s>>>(xb, mb, cells, shift, ob, pb);
+  else
+    probe_pool_kernel<false><<<rows, 128, 0, s>>>(xb, mb, cells, shift, ob, pb);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA/wgmma kernels
-// (conv3x3_sm90.cu, probes.cu): shared-memory addresses, mbarriers, TMA
-// tile loads and stores, wgmma matrix descriptors for the 128-byte swizzle,
-// the m64nNk16 bf16 wgmma forms (N = 16 ... 256), and the host-side tensor
-// map encoder.
+// (conv3x3_sm90.cu, stem_sm90.cu, probes.cu): shared-memory addresses,
+// mbarriers, TMA tile loads and stores, wgmma matrix descriptors for the
+// 128-byte swizzle and for no swizzle, named barriers, the m64nNk16 bf16
+// wgmma forms (N = 16 ... 256), and the host-side tensor map encoder.
 //
 // cuTensorMapEncodeTiled is a driver-API function and the library is not
 // linked with -lcuda: it is reached through the runtime's
@@ -156,6 +156,23 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr,
          (static_cast<uint64_t>(1024 >> 4) << 32) |
          (static_cast<uint64_t>(base_offset & 7) << 49) |
          (static_cast<uint64_t>(1) << 62);
+}
+
+// wgmma matrix descriptor of a K-major operand without swizzle (layout type
+// 0): core matrices of 8 rows × 16 bytes (8 bf16), each row's 16 bytes right
+// after the previous row's; `lbo` is the byte offset between the two core
+// matrices of a k16 step along K (values 0-7 and 8-15), `sbo` the offset
+// between 8-row groups. The start address only has to be 16-byte aligned.
+__device__ __forceinline__ uint64_t nosw_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -12,7 +12,8 @@ counterpart of ``wsiseg_tpu/models/infer_fast.py``
   from its max-pool, and :func:`.fast_decoder.decode_fold` runs the decoder
   on the conv kernels (:mod:`wsiseg_tpu_torch.ops.conv9`).
 
-Weights are prepared once by :func:`prepare_fast`. No TPU sublane packer
+Weights, the stem kernel's cell-form operand included, are prepared once
+by :func:`prepare_fast`. No TPU sublane packer
 is needed: the stem kernels read NHWC u8 and pad the 3-px ring
 themselves.
 """
@@ -30,7 +31,7 @@ from wsiseg_tpu_torch.models.fast_decoder import (decode_cells, decode_fold,
                                                   prepare_fold)
 from wsiseg_tpu_torch.models.fast_encoder import encode_stages, prepare_encoder
 from wsiseg_tpu_torch.ops.stem import fold_from_encoder, pad_value, \
-    stem_conv, stem_pool_conv
+    prepare_stem_cells, stem_conv, stem_pool_conv
 
 
 @dataclass
@@ -43,6 +44,7 @@ class FastWeights:
     dec: Dict[str, object]
     dtype: torch.dtype
     fold: Optional[Dict[str, list]] = None   # decode_fold's layer groups
+    stem_cells: Optional[torch.Tensor] = None  # the stem kernel's operand
 
 
 @torch.no_grad()
@@ -58,7 +60,8 @@ def prepare_fast(model, mean: Sequence[float], std: Sequence[float],
     return FastWeights(w, b, pad_value(mean),
                        prepare_encoder(model.encoder, dtype),
                        prepare_decoder(model, dtype), dtype,
-                       prepare_fold(model, dtype) if fold else None)
+                       prepare_fold(model, dtype) if fold else None,
+                       prepare_stem_cells(w))
 
 
 @torch.no_grad()
@@ -75,12 +78,14 @@ def segment_from_image(fw: FastWeights, img_u8: torch.Tensor,
     if fold:
         if fw.fold is None:
             raise ValueError("fold=True needs prepare_fast(..., fold=True)")
-        c1 = stem_conv(img_u8, fw.stem_w, fw.stem_b, fw.pad_rgb)
+        c1 = stem_conv(img_u8, fw.stem_w, fw.stem_b, fw.pad_rgb,
+                       fw.stem_cells)
         feats = encode_stages(fw.enc, None, fw.dtype,
                               c1=c1.permute(0, 3, 1, 2))
         return decode_fold(fw.fold, feats, fw.dtype, use_chain=False,
                            planar_head=planar_head)
-    c1s2d, pool = stem_pool_conv(img_u8, fw.stem_w, fw.stem_b, fw.pad_rgb)
+    c1s2d, pool = stem_pool_conv(img_u8, fw.stem_w, fw.stem_b, fw.pad_rgb,
+                                 fw.stem_cells)
     # NHWC kernel outputs are the channels_last NCHW tensors, no copy
     feats = encode_stages(fw.enc, pool.permute(0, 3, 1, 2), fw.dtype)
     return decode_cells(fw.dec, feats, fw.dtype, s2d_head=planar_head,

@@ -11,7 +11,7 @@ bench geometry (a 4096×3072 level-2 synthetic slide, resnet18 Unet,
   postprocess + label packing), median of ``--iters``;
 - ``torch.profiler`` over ``--iters`` steady engine runs: wall ms, summed
   kernel ms, the device's busy share, and kernel ms by class — the port's
-  own kernels (``stem_kernel``, ``conv9_sm90_kernel``,
+  own kernels (``stem_sm90_kernel``, ``conv9_sm90_kernel``,
   ``conv_chain_kernel``), library
   convolutions and GEMMs, and everything else (eager elementwise passes,
   copies, reductions);
@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 BENCH_HW = (3072, 4096)
-OWN = ("stem_kernel", "conv9_sm90_kernel", "conv_chain_kernel")
+OWN = ("stem_sm90_kernel", "conv9_sm90_kernel", "conv_chain_kernel")
 LIBRARY = ("conv", "cudnn", "xmma", "gemm", "cutlass", "implicit")
 
 
@@ -68,9 +68,10 @@ def _stages(engine, imgs, masks, iters: int) -> dict:
     fw = engine.fast
     out = {}
     if engine.fcn_fold:
-        c1 = stem_conv(imgs, fw.stem_w, fw.stem_b, fw.pad_rgb)
+        c1 = stem_conv(imgs, fw.stem_w, fw.stem_b, fw.pad_rgb,
+                       fw.stem_cells)
         out["stem"] = _events_ms(lambda: stem_conv(
-            imgs, fw.stem_w, fw.stem_b, fw.pad_rgb), iters)
+            imgs, fw.stem_w, fw.stem_b, fw.pad_rgb, fw.stem_cells), iters)
         c1n = c1.permute(0, 3, 1, 2)
         feats = encode_stages(fw.enc, None, fw.dtype, c1=c1n)
         out["encoder"] = _events_ms(lambda: encode_stages(
@@ -81,9 +82,10 @@ def _stages(engine, imgs, masks, iters: int) -> dict:
             fw.fold, feats, fw.dtype, use_chain=False, planar_head=True),
             iters)
     else:
-        c1s2d, pool = stem_pool_conv(imgs, fw.stem_w, fw.stem_b, fw.pad_rgb)
+        c1s2d, pool = stem_pool_conv(imgs, fw.stem_w, fw.stem_b, fw.pad_rgb,
+                                     fw.stem_cells)
         out["stem"] = _events_ms(lambda: stem_pool_conv(
-            imgs, fw.stem_w, fw.stem_b, fw.pad_rgb), iters)
+            imgs, fw.stem_w, fw.stem_b, fw.pad_rgb, fw.stem_cells), iters)
         pooled = pool.permute(0, 3, 1, 2)
         feats = encode_stages(fw.enc, pooled, fw.dtype)
         out["encoder"] = _events_ms(lambda: encode_stages(
