@@ -4,15 +4,17 @@
 
 Builds every CUDA kernel from ``wsiseg_tpu_torch/csrc`` (one ``nvcc`` per
 source, all started together), prints ptxas's register/spill report of
-the TMA/wgmma conv (``csrc/conv3x3_sm90.cu``) and of the wgmma stem
-(``csrc/stem_sm90.cu``) and their ``HGMMA`` (and the conv's ``UTMALDG``)
-instruction counts from ``cuobjdump -sass``, and holds each kernel
+the TMA/wgmma conv (``csrc/conv3x3_sm90.cu``), the fused chain
+(``csrc/conv_chain_sm90.cu``) and the wgmma stem (``csrc/stem_sm90.cu``)
+and their ``HGMMA`` (and the convs' ``UTMALDG``) instruction counts from
+``cuobjdump -sass``, and holds each kernel
 against its plain PyTorch version on the card at the serving path's
 shapes and batches and at ragged shapes: the two stem modes (K1
 ``stem_pool_conv``, K2 ``stem_conv``, ``stem_sm90.cu``; K2 also at a
 width with W % 4 == 2), the single conv (K3 ``conv9``, K5
 ``conv3x3_small``, ``conv3x3_sm90.cu``) and the fused chain (K4
-``conv_chain``, ``conv3x3.cu``); then the Hopper probes of
+``conv_chain``, ``conv_chain_sm90.cu``, with each group's recompute
+factor beside K3's per-layer sum and ``F.conv2d``'s); then the Hopper probes of
 ``wsiseg_tpu_torch.probes`` (the conv's P2a/P2b, the stem's P1 assembly
 forms and P2c pool epilogue) once each against their plain versions, and
 timed. Then it drives the port's paths with every launch count set to 0
@@ -175,6 +177,25 @@ def phase_build() -> dict:
     print(f"[2] cuobjdump -sass conv9_sm90_kernel (all instantiations): "
           f"{counts}", flush=True)
     assert all(counts.values()), f"conv9_sm90_kernel lacks {counts}"
+    for line in ptxas_lines(stem.ptxas_report("conv_chain_sm90"),
+                            "conv_chain_sm90_kernel",
+                            r"ILi(\d)ELi(\d+)ELi(\d+)ELi(\d)ELb([01])E",
+                            "L={} NM={} NL={} MT={} f32_out={}"):
+        print(f"[2] ptxas conv_chain_sm90_kernel {line}", flush=True)
+        assert "0 bytes spill stores" in line, f"spills: {line}"
+    # a wgmma issued under a runtime condition makes ptxas serialise every
+    # wgmma of the kernel (C7520), which cost the chain 1.4-1.5x
+    serial = {src: [ln for ln in stem.ptxas_report(src).splitlines()
+                    if "C7520" in ln or "serialized" in ln]
+              for src in ("conv_chain_sm90", "conv3x3_sm90", "stem_sm90")}
+    print(f"[2] ptxas notes on serialised wgmma: "
+          f"{ {k: len(v) for k, v in serial.items()} }", flush=True)
+    assert not serial["conv_chain_sm90"], serial["conv_chain_sm90"][0]
+    chain_counts = sass_counts(lib, "conv_chain_sm90_kernel")
+    print(f"[2] cuobjdump -sass conv_chain_sm90_kernel (all "
+          f"instantiations): {chain_counts}", flush=True)
+    assert all(chain_counts.values()), \
+        f"conv_chain_sm90_kernel lacks {chain_counts}"
     for line in ptxas_lines(stem.ptxas_report("stem_sm90"),
                             "stem_sm90_kernel", r"ILi(\d)ELb([01])E",
                             "form={} pool={}"):
@@ -308,13 +329,14 @@ def phase_convs(dev) -> dict:
         lib_ms = sum(cuda_ms(f) for f in lib)
         cost = _conv_cost(h, w, chans, 4 if od == torch.float32 else 2)
         add("conv_chain", err, ms, plain_ms, lib_ms, cost, bench)
+        chain_ms, chain_lib = ms, lib_ms
         print(f"[4] conv_chain {gname} {h}x{w} {chans}: max|d| {err:.6g}, "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.conv2d sum "
               f"{lib_ms:.4f} ms, bound "
               f"{bound(*cost)['bound_ms']:.4f} ms", flush=True)
         # K3: each layer alone, on its own input (the group input for the
         # first layer, the chain's bf16 intermediate after that)
-        xi = x
+        xi, k3_ms = x, 0.0
         for i, (wl, bl, relu) in enumerate(layers):
             last = i + 1 == len(layers)
             odi = od if last else torch.bfloat16
@@ -327,6 +349,7 @@ def phase_convs(dev) -> dict:
             cost = _conv_cost(h, w, chans[i:i + 2],
                               4 if odi == torch.float32 else 2)
             add("conv9", err, ms, plain_ms, lib_ms, cost, bench)
+            k3_ms += ms
             b = bound(*cost)
             print(f"[4] conv9 {gname}.{i} {h}x{w} {chans[i]}->"
                   f"{chans[i + 1]}: max|d| {err:.6g}, kernel {ms:.4f} ms, "
@@ -335,6 +358,13 @@ def phase_convs(dev) -> dict:
                   f"{100 * b['bound_ms'] / ms:.1f} % of it)", flush=True)
             if not last:
                 xi = got
+        b = bound(*_conv_cost(h, w, chans, 4 if od == torch.float32 else 2))
+        factor = conv9.plan_chain(1, h, w, tuple(chans)).recompute
+        print(f"[4] group {gname}: conv_chain {chain_ms:.4f} ms, K3 "
+              f"per-layer sum {k3_ms:.4f} ms, F.conv2d sum {chain_lib:.4f} "
+              f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}; chain at "
+              f"{100 * b['bound_ms'] / chain_ms:.1f} %), recompute factor "
+              f"{factor:.4f}", flush=True)
         if not bench:
             continue
         # the fold serve phase's slide group: SERVE_IN_FLIGHT different
@@ -614,7 +644,8 @@ def main() -> None:
          "wsiseg_tpu/ops/pallas_stem.py:244"),
         ("stem_conv", "stem_sm90.cu", "wsiseg_tpu/ops/pallas_stem.py:79"),
         ("conv9", "conv3x3_sm90.cu", "wsiseg_tpu/ops/conv9.py:49"),
-        ("conv_chain", "conv3x3.cu", "wsiseg_tpu/ops/conv9.py:175"),
+        ("conv_chain", "conv_chain_sm90.cu",
+         "wsiseg_tpu/ops/conv9.py:175"),
         ("conv3x3_small", "conv3x3_sm90.cu",
          "wsiseg_tpu/ops/pallas_conv.py:28"),
         ("probe_wgmma", "probes.cu", "scripts/probe_dot.py:38"),

@@ -158,7 +158,7 @@ def test_wrappers_reject(bad):
         if bad == "dims":
             c9.conv9(torch.zeros(5, 8), w, b)
         elif bad == "layers":
-            c9._launch(x[None].bfloat16(), [(w, b, True)] * 4,
-                       torch.bfloat16, "conv_chain_ref")
+            c9._launch_chain(x[None].bfloat16(), [(w, b, True)] * 4,
+                             torch.bfloat16, "conv_chain_ref")
         else:
             c9.conv9(x.to("meta"), w.to("meta"), b.to("meta"))

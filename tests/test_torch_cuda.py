@@ -1,7 +1,8 @@
 """Tests of the port that need an NVIDIA GPU (marker ``cuda``): each CUDA
 kernel (both stem modes in each A-operand assembly form; the stem probes
 5 and 6; the TMA/wgmma single conv as conv9,
-conv3x3_small and a one-layer conv_chain; the fused chain as conv_chain)
+conv3x3_small and a one-layer conv_chain; the fused TMA/wgmma chain as
+conv_chain)
 against its plain PyTorch version, and the engine's kernel path (GPU)
 against its plain path (CPU) on the default and the fold route.
 They skip where ``torch.cuda.is_available()`` is False. This file imports
@@ -187,22 +188,40 @@ def test_conv9_kernel_matches_plain(cuda_device, n, h, w, chans, out_dtype):
     _close(got, conv9.conv9_ref(x, wl, bl, True, out_dtype))
 
 
-@pytest.mark.parametrize("h,w,chans,out_dtype", [
-    (13, 35, [32, 64], torch.bfloat16),         # one layer: the single conv
-    (13, 35, [32, 64, 64], torch.bfloat16),
-    (192, 256, [768, 256, 256], torch.bfloat16),
-    (83, 131, [32, 64, 64, 16], torch.float32),
-    (7, 19, [12, 20, 6, 10], torch.bfloat16),
+@pytest.mark.parametrize("n,h,w,chans,out_dtype", [
+    (1, 13, 35, [32, 64], torch.bfloat16),       # one layer: the single conv
+    (1, 13, 35, [32, 64, 64], torch.bfloat16),
+    (1, 192, 256, [768, 256, 256], torch.bfloat16),       # block0
+    (2, 192, 256, [768, 256, 256], torch.bfloat16),
+    (1, 384, 512, [384, 128, 128], torch.bfloat16),       # block1
+    (2, 70, 200, [384, 256, 256], torch.bfloat16),        # block2's form
+    (1, 100, 190, [320, 128, 128], torch.bfloat16),       # block3's form
+    (2, 83, 131, [320, 128, 128], torch.float32),
+    (1, 83, 131, [32, 64, 64, 16], torch.float32),        # the ragged head
+    (2, 96, 300, [32, 64, 64, 16], torch.float32),
+    (1, 61, 117, [32, 64, 64, 16], torch.bfloat16),
+    (1, 45, 70, [384, 128, 16], torch.float32),           # NL up to NM
+    (2, 33, 59, [32, 64, 64], torch.float32),             # f32, NL = NM
+    (1, 40, 77, [768, 128, 64, 64], torch.bfloat16),      # L = 3, NM 128
+    (1, 7, 19, [12, 20, 6, 10], torch.bfloat16),          # Cin % 8 ≠ 0
+    (1, 1, 77, [16, 32, 16], torch.bfloat16),             # H = 1
 ])
-def test_conv_chain_kernel_matches_plain(cuda_device, h, w, chans,
+def test_conv_chain_kernel_matches_plain(cuda_device, n, h, w, chans,
                                          out_dtype):
-    x = _act(cuda_device, 1, h, w, chans[0])
+    x = _act(cuda_device, n, h, w, chans[0])
     layers = _layers(cuda_device, chans, last_relu=False)
     before = conv9.LAUNCHES["conv_chain"]
     got = conv9.conv_chain(x, layers, out_dtype)
     torch.cuda.synchronize()
     assert conv9.LAUNCHES["conv_chain"] == before + 1
+    assert got.dtype == out_dtype and got.shape == (n, h, w, chans[-1])
     _close(got, conv9.conv_chain_ref(x, layers, out_dtype))
+
+
+def test_conv_chain_kernel_rejects_f32_input(cuda_device):
+    layers = _layers(cuda_device, [8, 16, 8])
+    with pytest.raises(ValueError, match="conv_chain_ref"):
+        conv9.conv_chain(torch.zeros(1, 8, 8, 8, device=cuda_device), layers)
 
 
 def test_conv3x3_small_kernel_matches_plain(cuda_device):

@@ -8,8 +8,8 @@
 //       bf16 or f32 out — the fold decoder's 11 convs;
 //   wsiseg_tpu/ops/pallas_conv.py::_head_kernel (entry conv3x3_small), f32
 //       out, no ReLU.
-// (The fused chains of wsiseg_tpu/ops/conv9.py::_chain_kernel stay in
-// conv3x3.cu.)
+// (The fused chains of wsiseg_tpu/ops/conv9.py::_chain_kernel run
+// conv_chain_sm90.cu.)
 //
 // Layout: x (N, H, W, Cin) bf16 NHWC with Cin % 8 == 0 (TMA needs 16-byte
 // strides; the wrapper zero-pads other channel counts); w (Cout, 9, Cin)

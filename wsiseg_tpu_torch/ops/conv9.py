@@ -14,7 +14,8 @@
 On a CUDA tensor a single conv (``conv9``, ``conv3x3_small``, a
 one-layer ``conv_chain``) launches the TMA/wgmma kernel of
 ``csrc/conv3x3_sm90.cu`` with the tile plan of :func:`plan_conv9`; a chain
-of 2–3 layers launches ``csrc/conv3x3.cu``. Both are built with the stem
+of 2–3 layers launches ``csrc/conv_chain_sm90.cu`` with the strip plan of
+:func:`plan_chain`. Both are built with the stem
 by :func:`wsiseg_tpu_torch.ops.stem.build_library`; the wrappers count
 their launches apart in ``LAUNCHES``. On the card the kernels take bf16
 activations and weights, the serving dtype; an f32 activation on a CUDA
@@ -32,8 +33,9 @@ channel padding and the Mosaic mask modes are not carried over.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -230,6 +232,165 @@ def plan_conv9(n: int, h: int, w: int, cin: int, cout: int) -> ConvPlan:
     return plan
 
 
+# conv_chain_sm90.cu: every layer's rows are 64 positions at one pitch
+# (one m64 tile), a strip yields 64 - 2L output columns; its instantiations
+# (WSISEG_CHAIN_FORMS): (L, inner width NM, last width NL) → m64 rows per
+# consumer warpgroup and step (MT): as many as the accumulators (128 a
+# thread) and the rings leave room for; three for block4+head took 17 %
+# off its time against two (chain_parts, PERF.md §6)
+CHAIN_PITCH = 64
+CHAIN_FORMS = {(2, 64, 64): 2, (2, 128, 128): 2, (2, 256, 256): 1,
+               (3, 64, 16): 3, (3, 128, 128): 1}
+CHAIN_MAX_STAGES = 16
+CHAIN_BOX_N = 128            # a weight stage's output channels at most
+H100_SMS = 132
+PLANE_BYTES = CHAIN_PITCH * K_STEP * 2      # one row's 64-channel plane
+
+
+@dataclass(frozen=True)
+class ChainPlan:
+    """How ``conv_chain_sm90.cu`` covers an L-layer chain: tiles of ``seg``
+    output rows × ``tc`` output columns (a strip), walked in steps of ``s``
+    rows per layer. Layer l's position m is image column ``x0 - L + l + 1
+    + m``; its rows are recomputed ``L - 1 - l`` rows above and below a
+    segment. Inner layers (width ``nm``) keep ``ring_rows`` rows in shared
+    memory; layer 0 reads ``nwin`` TMA windows of ``s + 2`` rows; weights
+    stream through ``stages`` stages of one tap's ``min(N, 128) × 64``
+    box (two a tap for N = 256)."""
+    n: int
+    h: int
+    w: int
+    chans: Tuple[int, ...]
+    cin_pad: int
+    nm: int
+    nl: int
+    mt: int
+    seg: int
+    stages: int
+    nwin: int
+
+    @property
+    def layers(self) -> int:
+        return len(self.chans) - 1
+
+    @property
+    def tc(self) -> int:
+        return CHAIN_PITCH - 2 * self.layers
+
+    @property
+    def s(self) -> int:
+        return 2 * self.mt
+
+    @property
+    def ring_rows(self) -> int:
+        return self.s + 2
+
+    @property
+    def tiles_x(self) -> int:
+        return -(-self.w // self.tc)
+
+    @property
+    def tiles_y(self) -> int:
+        return -(-self.h // self.seg)
+
+    @property
+    def tiles(self) -> int:
+        return self.n * self.tiles_x * self.tiles_y
+
+    def steps(self, rows: int) -> int:
+        return -(-(rows + 2 * self.layers - 2) // self.s)
+
+    @property
+    def slot_bytes(self) -> int:
+        return self.nm // K_STEP * PLANE_BYTES
+
+    @property
+    def window_bytes(self) -> int:
+        return (self.s + 2) * PLANE_BYTES
+
+    @property
+    def stage_bytes(self) -> int:
+        return min(self.nm, CHAIN_BOX_N) * K_STEP * 2
+
+    @property
+    def smem_bytes(self) -> int:
+        # 1024 to align the first stage; 256 past the last window for the
+        # shifted reads of the positions no output needs
+        return (1024 + self.stages * self.stage_bytes
+                + (self.layers - 1) * self.ring_rows * self.slot_bytes
+                + self.nwin * self.window_bytes + 256)
+
+    @property
+    def recompute(self) -> float:
+        """Computed over required multiply-adds: each strip row is 64
+        positions, every step computes ``s`` rows of every layer (rows no
+        output needs included: the kernel issues every wgmma), K runs in
+        64-channel chunks and N is the wgmma width."""
+        rows = [self.seg] * (self.h // self.seg) + \
+            ([self.h % self.seg] if self.h % self.seg else [])
+        steps = sum(self.steps(r) for r in rows) * self.n * self.tiles_x
+        done = 0
+        for l, ci in enumerate(self.chans[:-1]):
+            width = self.nl if l + 1 == self.layers else self.nm
+            done += CHAIN_PITCH * 9 * K_STEP * -(-ci // K_STEP) * width
+        need = self.n * self.h * self.w * 9 * sum(
+            ci * co for ci, co in zip(self.chans[:-1], self.chans[1:]))
+        return steps * self.s * done / need
+
+
+def _chain_form(chans: Sequence[int]) -> Tuple[int, int, int]:
+    L = len(chans) - 1
+    mid, last = max(chans[1:-1]), chans[-1]
+    for (fl, nm, nl), mt in sorted(CHAIN_FORMS.items()):
+        if fl == L and nm >= mid and nl >= last:
+            return nm, nl, mt
+    raise ValueError(f"no conv_chain_sm90 form for channels {list(chans)}: "
+                     f"inner widths up to 256, the last up to the inner "
+                     f"width ({sorted(CHAIN_FORMS)})")
+
+
+@functools.lru_cache(maxsize=256)
+def plan_chain(n: int, h: int, w: int, chans: Tuple[int, ...]
+               ) -> ChainPlan:
+    """The strip plan of an L = 2, 3 layer chain of (n, h, w, chans[0])
+    through ``chans[1:]``. The widths are the smallest instantiation
+    (``CHAIN_FORMS``) that holds the channels; two layer-0 windows when
+    layer 0 has more than one 64-channel chunk and they leave room for 4
+    weight stages, else one (a single chunk's window loads while the
+    later layers run); as many weight stages as fit in 232 448 bytes (at
+    most 16). The segment ``seg`` minimises the waves of tiles over the
+    H100's 132 SMs (one block each) times a tile's steps, the larger on a
+    tie. Raises ValueError on an empty chain, a depth other than 2–3 or a
+    chain that does not fit."""
+    chans = tuple(int(c) for c in chans)
+    if not 3 <= len(chans) <= MAX_LAYERS + 1:
+        raise ValueError(f"a chain has 2..{MAX_LAYERS} layers, got "
+                         f"channels {list(chans)}")
+    if min(n, h, w, *chans) < 1:
+        raise ValueError(f"empty chain: n={n} h={h} w={w} chans="
+                         f"{list(chans)}")
+    nm, nl, mt = _chain_form(chans)
+    base = ChainPlan(n, h, w, chans, 8 * math.ceil(chans[0] / 8), nm, nl,
+                     mt, h, 2, 1)
+    best = None
+    for nwin in (2, 1):
+        fit = [s for s in range(2, CHAIN_MAX_STAGES + 1)
+               if replace(base, stages=s, nwin=nwin).smem_bytes <= MAX_SMEM]
+        if fit and (nwin == 1 or (fit[-1] >= 4 and chans[0] > K_STEP)):
+            best = replace(base, stages=fit[-1], nwin=nwin)
+            break
+    if best is None:
+        raise ValueError(f"{base} needs "
+                         f"{replace(base, nwin=1).smem_bytes} bytes of "
+                         f"shared memory per block, over {MAX_SMEM}")
+
+    def cost(seg):
+        p = replace(best, seg=seg)
+        return -(-p.tiles // H100_SMS) * p.steps(seg), -seg
+
+    return replace(best, seg=min(range(1, h + 1), key=cost))
+
+
 def pad_channels(x: torch.Tensor, w: torch.Tensor, cin_pad: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (N, H, W, Cin) and w (Cout, 9, Cin) with zero channels appended up
@@ -291,46 +452,56 @@ def _launch_sm90(x: torch.Tensor, layer: Layer, out_dtype: torch.dtype,
     return out
 
 
-def _launch(x: torch.Tensor, layers: Sequence[Layer],
-            out_dtype: torch.dtype, ref_name: str) -> torch.Tensor:
-    """Run the CUDA chain kernel (conv3x3.cu, 2..3 layers) on NHWC ``x``;
-    raises on what it does not take."""
+def _pad_k(wl: torch.Tensor) -> torch.Tensor:
+    """Layer weights (Cout, 9, Cin) with zero input channels up to a
+    multiple of 8 (TMA's 16-byte strides); the weights as they are when
+    Cin % 8 == 0."""
+    extra = -wl.shape[2] % 8
+    return F.pad(wl, (0, extra)) if extra else wl
+
+
+def _launch_chain(x: torch.Tensor, layers: Sequence[Layer],
+                  out_dtype: torch.dtype, ref_name: str) -> torch.Tensor:
+    """Run conv_chain_sm90.cu (2..3 layers) on NHWC ``x``; raises on what
+    it does not take."""
     _check_bf16(x, out_dtype, ref_name)
     if not 2 <= len(layers) <= MAX_LAYERS:
         raise ValueError(f"2..{MAX_LAYERS} layers, got {len(layers)}")
     n, h, w, cin = x.shape
     dev = x.device
-    x = x.contiguous()
-    args, couts, relu_mask, c = [], [], 0, cin
+    chans, relu_mask = [cin], 0
     for i, (wl, bl, relu) in enumerate(layers):
         cout = wl.shape[0]
-        check_tensor(wl, f"layer {i} weights", torch.bfloat16, (cout, 9, c),
-                     dev)
+        check_tensor(wl, f"layer {i} weights", torch.bfloat16,
+                     (cout, 9, chans[-1]), dev)
         check_tensor(bl, f"layer {i} bias", torch.float32, (cout,), dev)
-        args += [wl.data_ptr(), bl.data_ptr(), cout]
-        couts.append(cout)
         relu_mask |= int(bool(relu)) << i
-        c = cout
-    while len(couts) < MAX_LAYERS:
-        args += [None, None, 0]
-        couts.append(0)
-    smem = kernel_entry("wsiseg_conv3x3_smem_bytes",
-                        [ctypes.c_int] * 4)(len(layers), *couts)
-    if smem > MAX_SMEM:
-        raise ValueError(f"a {len(layers)}-layer chain with output channels "
-                         f"{couts[:len(layers)]} needs {smem} bytes of "
-                         f"shared memory per block, over {MAX_SMEM}")
-    out = torch.empty((n, h, w, c), dtype=out_dtype, device=dev)
-    fn = kernel_entry("wsiseg_conv3x3_chain",
+        chans.append(cout)
+    plan = plan_chain(n, h, w, tuple(chans))
+    ws = [wl for wl, _, _ in layers]
+    if plan.cin_pad != cin:
+        x, ws[0] = pad_channels(x, ws[0], plan.cin_pad)
+    x = _aligned(x)
+    ws = [_aligned(ws[0])] + [_aligned(_pad_k(wl)) for wl in ws[1:]]
+    args = []
+    for wl, (_, bl, _) in zip(ws, layers):
+        args += [wl.data_ptr(), bl.data_ptr(), wl.shape[0]]
+    args += [None, None, 0] * (MAX_LAYERS - len(layers))
+    out = torch.empty((n, h, w, chans[-1]), dtype=out_dtype, device=dev)
+    fn = kernel_entry("wsiseg_conv_chain_sm90",
                       [ctypes.c_void_p] + [ctypes.c_int] * 5
                       + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] * 3
-                      + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
+                      + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+                      + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     with torch.cuda.device(dev):
-        err = fn(x.data_ptr(), n, h, w, cin, len(layers), *args, relu_mask,
-                 int(out_dtype == torch.float32), out.data_ptr(),
+        err = fn(x.data_ptr(), n, h, w, plan.cin_pad, len(layers), *args,
+                 relu_mask, int(out_dtype == torch.float32), out.data_ptr(),
+                 plan.nm, plan.nl, plan.mt, plan.seg, plan.stages,
+                 plan.nwin, plan.smem_bytes,
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"conv3x3 kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"conv_chain_sm90 kernel launch failed: "
+                           f"{ERRORS.get(err, f'CUDA error {err}')}")
     return out
 
 
@@ -345,7 +516,7 @@ def _run(name: str, ref, x: torch.Tensor, layers: Sequence[Layer],
     if len(layers) == 1:
         y = _launch_sm90(xb, layers[0], out_dtype, f"{name}_ref")
     else:
-        y = _launch(xb, layers, out_dtype, f"{name}_ref")
+        y = _launch_chain(xb, layers, out_dtype, f"{name}_ref")
     LAUNCHES[name] += 1
     return y[0] if x.dim() == 3 else y
 
@@ -367,7 +538,7 @@ def conv_chain(x: torch.Tensor, layers: Sequence[Layer],
     ``(w, bias, relu)`` from :func:`prep_layer`; intermediates in x's dtype
     and re-zeroed outside the image, only the last layer is written, in
     ``out_dtype``. CPU tensors take :func:`conv_chain_ref`; CUDA tensors
-    launch ``conv3x3.cu`` (one layer: ``conv3x3_sm90.cu``)."""
+    launch ``conv_chain_sm90.cu`` (one layer: ``conv3x3_sm90.cu``)."""
     return _run("conv_chain", conv_chain_ref, x, layers, out_dtype)
 
 

@@ -12,7 +12,7 @@ bench geometry (a 4096×3072 level-2 synthetic slide, resnet18 Unet,
 - ``torch.profiler`` over ``--iters`` steady engine runs: wall ms, summed
   kernel ms, the device's busy share, and kernel ms by class — the port's
   own kernels (``stem_sm90_kernel``, ``conv9_sm90_kernel``,
-  ``conv_chain_kernel``), library
+  ``conv_chain_sm90_kernel``), library
   convolutions and GEMMs, and everything else (eager elementwise passes,
   copies, reductions);
 - peak device memory of one run.
@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 BENCH_HW = (3072, 4096)
-OWN = ("stem_sm90_kernel", "conv9_sm90_kernel", "conv_chain_kernel")
+OWN = ("stem_sm90_kernel", "conv9_sm90_kernel", "conv_chain_sm90_kernel")
 LIBRARY = ("conv", "cudnn", "xmma", "gemm", "cutlass", "implicit")
 
 
