@@ -27,6 +27,11 @@ just before and read just after:
 - ``predict_tumorbed`` on three bench-geometry slides (4096×3072 at level
   2, resnet18 Unet, 4 classes, bf16) on the default route, and on two with
   ``engine.fcn_fold = True``, each with ``device_throughput``;
+- each decoder family (Unet, Linknet, FPN, PSPNet) on the resnet50
+  encoder, full width and depth: ``predict_tumorbed`` on two
+  bench-geometry slides as one group (one K1 launch), ``device_throughput``
+  and peak device memory at 1 and 2 slides in flight, and a 512×384
+  slide's labels and heat, kernels (GPU) against plain versions (CPU);
 - ``decode_fold(use_chain=True)`` at bench geometry (the chain kernel);
 - ``conv3x3_small`` at its documented head shape (the kernel has no
   caller in the serving path; its phase is its path).
@@ -64,6 +69,8 @@ BENCH_HW = (3072, 4096)          # level-2 (H, W) of the bench geometry
 RAGGED_HW = (96, 256)
 GROUP = 4                        # slides per stem launch in the group case
 SERVE_IN_FLIGHT = 2              # slides per launch in the serve phases
+FAMILIES = ("Unet", "Linknet", "FPN", "PSPNet")
+FAMILY_ARCH = "resnet50"
 TOL = 2.0 ** -7                  # one bf16 ulp, relative
 MEAN = (0.485, 0.456, 0.406)
 STD = (0.229, 0.224, 0.225)
@@ -552,6 +559,79 @@ def phase_serve(dev, tmp: str, fold: bool, n_slides: int) -> dict:
     return counts
 
 
+def phase_families(dev, tmp: str) -> int:
+    """Each decoder family on the resnet50 encoder (random weights, full
+    width and depth): ``predict_tumorbed`` on SERVE_IN_FLIGHT
+    bench-geometry slides served as one group — K1 launched once, no other
+    kernel — with 3072×4096 heatmaps; ``device_throughput`` and
+    ``torch.cuda.max_memory_allocated`` at 1 and SERVE_IN_FLIGHT slides in
+    flight; then a 512×384 slide's labels and heat, GPU (kernels) against
+    CPU (plain versions). Returns the K1 launches of the serves."""
+    from wsiseg_tpu_torch.config import default_config
+    from wsiseg_tpu_torch.data.wsi_tiles import SlideCollection, plan_slide
+    from wsiseg_tpu_torch.infer.engine import DenseInferenceEngine
+    from wsiseg_tpu_torch.infer.evaluators import predict_tumorbed
+    from wsiseg_tpu_torch.models.ynet import init_ynet
+    from wsiseg_tpu_torch.slides import VirtualPyramidSlide
+
+    h, w = BENCH_HW
+    images = [level2_image(h, w, seed=40 + k) for k in range(SERVE_IN_FLIGHT)]
+    small = VirtualPyramidSlide({2: level2_image(384, 512, seed=12)},
+                                num_levels=3)
+    launches = 0
+    for family in FAMILIES:
+        cfg = default_config(
+            val_save_pth=os.path.join(tmp, f"family_{family}"),
+            wsi_mask_pth="", model_name=family, arch_encoder=FAMILY_ARCH,
+            tile_w=256, tile_h=256)
+        engine = DenseInferenceEngine(
+            init_ynet(cfg, torch.Generator().manual_seed(0)), cfg, device=dev)
+        engine.slides_in_flight = SERVE_IN_FLIGHT
+        coll = SlideCollection(
+            [(f"{family}{k}", VirtualPyramidSlide({2: img}, num_levels=3))
+             for k, img in enumerate(images)], cfg)
+        reset_counts()
+        t0 = time.time()
+        res = predict_tumorbed(engine, coll, ep=0, log=lambda s: None)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = read_counts()
+        assert counts["stem_pool_conv"] == 1 and sum(counts.values()) == 1, \
+            f"{family}: one slide group must launch K1 once, got {counts}"
+        launches += counts["stem_pool_conv"]
+        for rec in res.values():
+            hm = np.asarray(Image.open(rec["heatmap"]))
+            assert hm.shape == (h, w), hm.shape
+        plan = next(iter(coll.items()))[1]
+        tput = {}
+        for nsf in (1, SERVE_IN_FLIGHT):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            sec = engine.device_throughput(plan, mode="fcn", iters=3,
+                                           slides_in_flight=nsf)[
+                "sec_per_slide"]
+            tput[nsf] = (sec, torch.cuda.max_memory_allocated() / 1e9)
+        cpu = DenseInferenceEngine(
+            init_ynet(cfg, torch.Generator().manual_seed(0)), cfg,
+            device="cpu")
+        splan = plan_slide("small", small, cfg)
+        a, b = engine.predict_slide_fcn(splan), cpu.predict_slide_fcn(splan)
+        lab = float((a.labels == b.labels).mean())
+        heat = float((np.abs(a.heatmap - b.heatmap) <= 2 / 255 + 1e-6)
+                     .mean())
+        print(f"[6b] family {family} {FAMILY_ARCH}: served {len(res)} slides "
+              f"{w}x{h} in {wall:.3f} s, launches {counts}; "
+              f"device_throughput fcn: " + ", ".join(
+                  f"{n} in flight {sec:.5f} s/slide, peak {gb:.4f} GB"
+                  for n, (sec, gb) in tput.items())
+              + f"; 512x384 GPU-vs-CPU labels {lab:.6f} heat<=2/255 "
+              f"{heat:.6f}", flush=True)
+        assert lab >= 0.99 and heat >= 0.99, (family, lab, heat)
+        del engine, cpu
+        torch.cuda.empty_cache()
+    return launches
+
+
 def phase_fold_chain(dev) -> dict:
     """decode_fold(use_chain=True) on one bench-geometry slide's encoder
     features: five conv_chain launches, and the same logits as the conv9
@@ -632,9 +712,10 @@ def main() -> None:
         phase_cli(dev, tmp)
         default = phase_serve(dev, tmp, fold=False, n_slides=3)
         fold = phase_serve(dev, tmp, fold=True, n_slides=2)
+        families = phase_families(dev, tmp)
     chain = phase_fold_chain(dev)
     head = phase_head(dev)
-    launches = {"stem_pool_conv": default["stem_pool_conv"],
+    launches = {"stem_pool_conv": default["stem_pool_conv"] + families,
                 "stem_conv": fold["stem_conv"], "conv9": fold["conv9"],
                 "conv_chain": chain["conv_chain"],
                 "conv3x3_small": head["conv3x3_small"]}

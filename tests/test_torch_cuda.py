@@ -4,7 +4,8 @@ kernel (both stem modes in each A-operand assembly form; the stem probes
 conv3x3_small and a one-layer conv_chain; the fused TMA/wgmma chain as
 conv_chain)
 against its plain PyTorch version, and the engine's kernel path (GPU)
-against its plain path (CPU) on the default and the fold route.
+against its plain path (CPU) on the default and the fold route, and for
+each decoder family on the resnet50 encoder.
 They skip where ``torch.cuda.is_available()`` is False. This file imports
 no JAX, so it also runs on a machine without it:
 
@@ -262,6 +263,28 @@ def test_engine_gpu_matches_cpu(cuda_device, fold):
     for e in engines:
         e.fcn_fold = fold
     gpu, cpu = (e.predict_slide_fcn(plan) for e in engines)
+    assert (gpu.labels == cpu.labels).mean() >= 0.99
+    assert (np.abs(gpu.heatmap - cpu.heatmap) <= 2 / 255 + 1e-6).mean() \
+        >= 0.99
+
+
+@pytest.mark.parametrize("family", ["Unet", "Linknet", "FPN", "PSPNet"])
+def test_family_engine_gpu_matches_cpu(cuda_device, family):
+    """Each decoder family on the resnet50 encoder: the engine's kernel
+    path (GPU, one stem kernel launch a slide) against its plain path
+    (CPU) on a 192×256 slide."""
+    cfg = default_config(tile_w=64, tile_h=64, tile_stride_w=32,
+                         tile_stride_h=32, model_name=family,
+                         arch_encoder="resnet50")
+    plan = plan_slide("syn", SyntheticSlide(width=4096, height=3072,
+                                            num_levels=3, seed=11), cfg)
+    gpu_eng, cpu_eng = (DenseInferenceEngine(init_ynet(cfg, torch.Generator(
+        ).manual_seed(0)), cfg, device=d) for d in (cuda_device, "cpu"))
+    before = stem.LAUNCHES
+    gpu = gpu_eng.predict_slide_fcn(plan)
+    assert stem.LAUNCHES == before + 1
+    cpu = cpu_eng.predict_slide_fcn(plan)
+    assert gpu.labels.shape == (192, 256)
     assert (gpu.labels == cpu.labels).mean() >= 0.99
     assert (np.abs(gpu.heatmap - cpu.heatmap) <= 2 / 255 + 1e-6).mean() \
         >= 0.99

@@ -23,7 +23,7 @@ from wsiseg_tpu_torch.infer.engine import DenseInferenceEngine
 from wsiseg_tpu_torch.infer.evaluators import _pipelined_results
 from wsiseg_tpu_torch.infer import writers
 from wsiseg_tpu_torch.models.flax_import import from_flax
-from wsiseg_tpu_torch.models.ynet import YNet, build_ynet, init_ynet
+from wsiseg_tpu_torch.models.ynet import build_ynet, init_ynet
 from wsiseg_tpu_torch.ops.tissue import find_nuclei
 
 torch.set_num_threads(2)
@@ -281,7 +281,7 @@ def test_cli_defaults_to_cuda(tmp_path):
 
 
 @pytest.mark.parametrize("what", ["chunk", "keep_probs", "cls", "scan_level",
-                                  "decoder", "encoder", "grid"])
+                                  "grid"])
 def test_unported_routes_raise(cfg, slide, engine, what):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if what in ("chunk", "keep_probs"):
@@ -293,10 +293,6 @@ def test_unported_routes_raise(cfg, slide, engine, what):
         elif what == "scan_level":
             DenseInferenceEngine(engine.model, cfg.replace(scan_level=1),
                                  device="cpu")
-        elif what == "decoder":
-            YNet(model_name="FPN")
-        elif what == "encoder":
-            YNet(arch="resnet50")
         else:
             from wsiseg_tpu_torch.cli.eval_tumorbed import main
             main(["--grid", "--raw_val_pth", "/nonexistent"])

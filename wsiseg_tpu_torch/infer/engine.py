@@ -8,12 +8,17 @@ level image goes to the device, the fused stem kernel + functional Y-Net
 produce s2d(4) logit planes, the planar postprocess (softmax, class
 floors, argmax, tissue-masked heat) runs on the device, labels are packed
 2 bits each, and only the u8 planes come back; the host interleaves them
-to full resolution.
+to full resolution. Every decoder family and encoder serves this way:
+Unet and Linknet emit the s2d(4) planes from their cell-domain tails;
+FPN and PSPNet emit native full-resolution logits, which
+:meth:`DenseInferenceEngine._postprocess_native_planes` lays out as the
+same planes (JAX ``engine.py:302-329``).
 
 ``engine.fcn_fold = True`` (opt-in, as in JAX) takes the fold route
-instead: the native stem kernel, the encoder, and ``decode_fold`` on the
-conv kernels, whose head emits s2d(2) planes — the postprocess, label
-packing (four planes in one byte) and interleave then run at f = 2.
+instead, for Unet on BasicBlock encoders only (any other model raises
+``ValueError``): the native stem kernel, the encoder, and ``decode_fold``
+on the conv kernels, whose head emits s2d(2) planes — the postprocess,
+label packing (four planes in one byte) and interleave then run at f = 2.
 
 The model's weights are converted once, when the engine is built
 (:func:`wsiseg_tpu_torch.models.infer_fast.prepare_fast`; the fold
@@ -35,9 +40,10 @@ import torch
 
 from wsiseg_tpu_torch.config import Config
 from wsiseg_tpu_torch.data.wsi_tiles import SlidePlan
-from wsiseg_tpu_torch.models.fast_decoder import S2D_HEAD_F, prepare_fold
-from wsiseg_tpu_torch.models.infer_fast import prepare_fast, \
-    segment_from_image
+from wsiseg_tpu_torch.models.fast_decoder import S2D_HEAD_F, prepare_fold, \
+    space_to_depth
+from wsiseg_tpu_torch.models.infer_fast import NATIVE_DECODERS, check_fold, \
+    prepare_fast, segment_from_image
 
 ROUTES_ITEM = ("not ported yet: ROADMAP.md, queue 1, 'grid, cls and "
                "streamed modes with oversize/banded routing'")
@@ -99,7 +105,8 @@ class DenseInferenceEngine:
         self.fast = prepare_fast(self.model, cfg.dataset_mean,
                                  cfg.dataset_std, dtype)
         self.slides_in_flight = 1
-        #: the fold route (JAX ``fcn_fold``, ``engine.py:464-471``), opt-in
+        #: the fold route (JAX ``fcn_fold``, ``engine.py:464-471``), opt-in;
+        #: Unet on BasicBlock encoders only
         self.fcn_fold = False
         self.fcn_fast_max_px = FCN_FAST_MAX_PX
         self._h2d_stream = None
@@ -221,6 +228,26 @@ class DenseInferenceEngine:
             .to(torch.uint8)
         return labels_p, heat_p
 
+    def _postprocess_native_planes(self, seg: torch.Tensor,
+                                   mask4_u8: torch.Tensor):
+        """(N, nc, H, W) native logits (FPN, PSPNet) → the planes of
+        :meth:`_postprocess_s2d` at f = ``S2D_HEAD_F``: the logits laid out
+        as s2d(4) planes (channel pos·nc + c), then the same postprocess.
+        Plane a·4 + b is x[a::4, b::4], as :meth:`_interleave4` expects,
+        and the tissue mask applies at 1/4 resolution, as in JAX
+        (``engine.py:302-329``, which takes the softmax at full resolution
+        first: the same values, per pixel)."""
+        return self._postprocess_s2d(space_to_depth(seg, S2D_HEAD_F),
+                                     mask4_u8)
+
+    def _postprocess(self, y: torch.Tensor, masks: torch.Tensor):
+        """The forward's head output → (labels, heat) planes: native
+        logits (FPN, PSPNet) through :meth:`_postprocess_native_planes`,
+        head planes through :meth:`_postprocess_s2d`."""
+        if self.fast.family in NATIVE_DECODERS:
+            return self._postprocess_native_planes(y, masks)
+        return self._postprocess_s2d(y, masks)
+
     def _pack_labels(self, labels_p: torch.Tensor) -> torch.Tensor:
         """Labels fit 2 bits (nc ≤ 4): 4 position planes per byte, plane
         j + m·f²/4 in bits 2m — 4× less device→host traffic."""
@@ -262,7 +289,7 @@ class DenseInferenceEngine:
             self.fast.fold = prepare_fold(self.model, self.dtype)
         y_s = segment_from_image(self.fast, imgs, planar_head=True,
                                  fold=self.fcn_fold)
-        labels_p, heat_p = self._postprocess_s2d(y_s, masks)
+        labels_p, heat_p = self._postprocess(y_s, masks)
         return self._pack_labels(labels_p), heat_p
 
     def _sync(self) -> None:
@@ -270,6 +297,8 @@ class DenseInferenceEngine:
             torch.cuda.synchronize(self.device)
 
     def _inputs(self, plans: Sequence[SlidePlan], imgs=None):
+        if self.fcn_fold:
+            check_fold(self.model)
         dims = {self._fcn_fast_dims(*p.stitch_hw) for p in plans}
         if len(dims) != 1:
             raise ValueError(f"slides of one group must share padded "

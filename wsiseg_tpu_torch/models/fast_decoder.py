@@ -1,5 +1,7 @@
-"""Inference-fast U-Net decoder with the space-to-depth (s2d) cell-domain
-tail — counterpart of ``wsiseg_tpu/models/fast_decoder.py``.
+"""Inference-fast decoders — counterpart of
+``wsiseg_tpu/models/fast_decoder.py``: the U-Net and Linknet decoders with
+their space-to-depth (s2d) cell-domain tails, and (the JAX engine runs
+the flax modules there) FPN and PSPNet on prepared weights.
 
 A stride-1 3×3 conv maps exactly onto a 3×3 conv over s2d(f) cells with
 transformed weights (derivations in the JAX module); the nearest 2×
@@ -17,6 +19,11 @@ Kernel transforms work on HWIO tensors, exactly as the JAX functions do
 engine is built. Every conv of :func:`decode_cells` is a plain
 ``F.conv2d`` (cuDNN on the card).
 
+:func:`decode_linknet_cells` is Linknet's counterpart of
+:func:`decode_cells` (same ``S2D_HEAD_F`` head planes);
+:func:`decode_native` runs FPN and PSPNet to native full-resolution
+logits (JAX ``infer_fast._apply_native_decoder``).
+
 :func:`decode_fold` is the fold route's decoder (JAX ``decode_fold``): its
 layer groups run on the port's hand-written conv kernels
 (:mod:`wsiseg_tpu_torch.ops.conv9`), with weights prepared once by
@@ -32,6 +39,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from wsiseg_tpu_torch.models.decoders import (FPN_UPSAMPLES, psp_pool,
+                                              resize_linear, resize_nearest)
 from wsiseg_tpu_torch.ops.conv9 import conv9, conv_chain, prep_layer
 
 # s2d factor of the head logits that decode_cells(s2d_head=True) emits —
@@ -240,6 +249,170 @@ def decode_cells(prep: Dict[str, object], feats: List[Optional[torch.Tensor]],
     if s2d_head:
         return y.to(dtype)
     return depth_to_space(y, S2D_HEAD_F).float()
+
+
+# ---- Linknet: blocks 3-4 + head in s2d cells ----
+
+def _block_diag_1x1(w: torch.Tensor, f2: int) -> torch.Tensor:
+    """(1, 1, Cin, Cout) HWIO → (1, 1, f²·Cin, f²·Cout): a 1×1 conv acts
+    on each s2d position alike, so its s2d(f) kernel is kron(I_{f²}, w)
+    (JAX ``_block_diag_1x1``, ``fast_decoder.py:496``)."""
+    cin, cout = w.shape[2], w.shape[3]
+    k = torch.kron(torch.eye(f2, dtype=w.dtype, device=w.device),
+                   w.reshape(cin, cout).contiguous())
+    return k.reshape(1, 1, f2 * cin, f2 * cout)
+
+
+def _layer(seq: nn.Sequential, dtype: torch.dtype,
+           k: Optional[torch.Tensor] = None, reps: int = 1):
+    """``Sequential(conv, BN)`` → (OIHW kernel in ``dtype``, f32 BN scale,
+    shift tiled over ``reps`` s2d positions); ``k`` replaces the conv's
+    HWIO kernel by a transformed one."""
+    s, t = _bn_affine(seq[1])
+    return (oihw(hwio(seq[0]) if k is None else k, dtype), _chan(s, reps),
+            _chan(t, reps))
+
+
+def _cbr(x: torch.Tensor, layer, dtype: torch.dtype) -> torch.Tensor:
+    """conv (SAME for 3×3, 1×1 unpadded) + f32 BN affine + ReLU, in
+    ``dtype``."""
+    k, s, t = layer
+    return _affine_relu(conv(x, k, padding=k.shape[-1] // 2), s, t, dtype)
+
+
+@torch.no_grad()
+def prepare_linknet(model, dtype: torch.dtype) -> Dict[str, object]:
+    """All weight transforms of :func:`decode_linknet_cells`, done once:
+    blocks 0-2 and block3's conv1 native; block3's conv2 ``upfold``,
+    conv3 block-diagonal in s2d(2); block4's conv1 block-diagonal s2d(2),
+    conv2 ``upfold2``, conv3 block-diagonal s2d(4); the head
+    ``s2d_kernel_f(·, 4)`` with its bias tiled 16×."""
+    blocks = model.decoder.blocks
+    prep: Dict[str, object] = {
+        f"b{i}": [_layer(getattr(blocks[i], f"conv{k}"), dtype)
+                  for k in (1, 2, 3)] for i in (0, 1, 2)}
+    b3, b4 = blocks[3], blocks[4]
+    prep["b3"] = [
+        _layer(b3.conv1, dtype),
+        _layer(b3.conv2, dtype, upfold_kernel(hwio(b3.conv2[0])), 4),
+        _layer(b3.conv3, dtype, _block_diag_1x1(hwio(b3.conv3[0]), 4), 4)]
+    prep["b4"] = [
+        _layer(b4.conv1, dtype, _block_diag_1x1(hwio(b4.conv1[0]), 4), 4),
+        _layer(b4.conv2, dtype, upfold2_kernel(hwio(b4.conv2[0])), 16),
+        _layer(b4.conv3, dtype, _block_diag_1x1(hwio(b4.conv3[0]), 16), 16)]
+    head = model.segmentation_head[0]
+    prep["head"] = (oihw(s2d_kernel_f(hwio(head), 4), dtype),
+                    _chan(head.bias.detach().float(), 16))
+    return prep
+
+
+def decode_linknet_cells(prep: Dict[str, object],
+                         feats: List[Optional[torch.Tensor]],
+                         dtype: torch.dtype, s2d_head: bool = False,
+                         skip3_s2d: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Linknet decoder forward (JAX ``decode_linknet_cells``,
+    ``fast_decoder.py:506-601``, with a batch dimension): blocks 0-2
+    native; block3 at H/4 cells (conv1 native, then s2d(2) of its H/2
+    output) with the residual skip ``space_to_depth(c1)``; block4 + head
+    on the same cells in s2d(4) of the full resolution.
+    ``s2d_head=True`` returns the (B, 16·nc, H/4, W/4) head logits in
+    ``dtype`` — :func:`decode_cells`' plane contract; otherwise (B, nc, H,
+    W) f32. ``skip3_s2d`` (B, 4·C1, H/4, W/4) supplies
+    ``space_to_depth(c1)`` directly (the fused stem emits it;
+    ``feats[4]`` may then be None)."""
+    xx = feats[0].to(dtype)
+    skips = list(feats[1:]) + [None]
+    for i in (0, 1, 2):
+        l1, l2, l3 = prep[f"b{i}"]
+        xx = upsample2x(_cbr(xx, l1, dtype))
+        xx = _cbr(_cbr(xx, l2, dtype), l3, dtype) + skips[i].to(dtype)
+    for layer in prep["b3"]:
+        xx = _cbr(xx, layer, dtype)
+    if skip3_s2d is None:
+        skip3_s2d = space_to_depth(skips[3].to(dtype))
+    xx = xx + skip3_s2d.to(dtype)
+    for layer in prep["b4"]:
+        xx = _cbr(xx, layer, dtype)
+    kh, bh = prep["head"]
+    y = conv(xx, kh) + bh
+    if s2d_head:
+        return y.to(dtype)
+    return depth_to_space(y, S2D_HEAD_F).float()
+
+
+# ---- FPN and PSPNet: native full-resolution logits ----
+
+@torch.no_grad()
+def prepare_native(model, dtype: torch.dtype) -> Dict[str, object]:
+    """Weights of :func:`decode_native` for an FPN or PSPNet Y-Net, done
+    once: OIHW kernels in ``dtype``, f32 BN affines and biases."""
+    dec, head = model.decoder, model.segmentation_head[0]
+    prep: Dict[str, object] = {
+        "family": model.model_name, "upsample": model.head_upsample,
+        "head": (oihw(hwio(head), dtype), _chan(head.bias.detach().float()))}
+    if model.model_name == "FPN":
+        for n in (5, 4, 3, 2):
+            lat, seg = getattr(dec, f"lat{n}"), getattr(dec, f"seg{n}")
+            prep[f"lat{n}"] = (oihw(hwio(lat), dtype),
+                               _chan(lat.bias.detach().float()))
+            prep[f"seg{n}"] = [_layer(getattr(seg, f"conv{k}"), dtype)
+                               for k in range(max(seg.n_up, 1))]
+    else:
+        prep["bins"] = dec.bins
+        prep["psp"] = [_layer(getattr(dec, f"psp{b}"), dtype)
+                       for b in range(len(dec.bins))]
+        prep["fuse"] = _layer(dec.fuse, dtype)
+    return prep
+
+
+def _fpn(prep: Dict[str, object], feats: List[torch.Tensor],
+         dtype: torch.dtype) -> torch.Tensor:
+    """JAX ``FPNDecoder`` up to its head: the (B, 128, H/4, W/4) merge.
+    Rounding points as in the flax module applied in bf16: the lateral
+    convs emit ``dtype``, each seg block's BN + ReLU output stays f32
+    (resized and summed in f32), and a conv rounds its input to
+    ``dtype``."""
+    p, out = None, None
+    for n, c in zip((5, 4, 3, 2), feats[:4]):
+        k, b = prep[f"lat{n}"]
+        lat = (conv(c.to(dtype), k, padding=0) + b).to(dtype)
+        p = lat if p is None else lat + resize_nearest(p, *c.shape[2:])
+        x = p
+        for k, s, t in prep[f"seg{n}"]:
+            x = torch.relu(conv(x.to(dtype), k) * s + t)
+            if FPN_UPSAMPLES[n]:
+                x = upsample2x(x)
+        out = x if out is None else out + x
+    return out
+
+
+def _psp(prep: Dict[str, object], feats: List[torch.Tensor],
+         dtype: torch.dtype) -> torch.Tensor:
+    """JAX ``PSPDecoder`` up to its head: pooled pyramid over c5, one
+    1×1 conv + BN + ReLU per bin resized back in f32, concat, 3×3 fuse."""
+    c5 = feats[0].to(dtype)
+    h, w = c5.shape[2:]
+    outs = [c5]
+    for (k, s, t), nbins in zip(prep["psp"], prep["bins"]):
+        x = conv(psp_pool(c5, nbins).to(dtype), k, padding=0)
+        outs.append(resize_linear(torch.relu(x * s + t), h, w).to(dtype))
+    return _cbr(torch.cat(outs, dim=1), prep["fuse"], dtype)
+
+
+def decode_native(prep: Dict[str, object], feats: List[torch.Tensor],
+                  dtype: torch.dtype) -> torch.Tensor:
+    """FPN or PSPNet forward on the whole-image pyramid (JAX
+    ``infer_fast._apply_native_decoder``, which applies the flax decoder
+    in bf16): decoder, 1×1 head, and the bilinear upsample to (B, nc, H,
+    W) f32 logits. As there, the head's logits are rounded to ``dtype``
+    and resized in ``dtype``."""
+    body = _fpn if prep["family"] == "FPN" else _psp
+    kh, bh = prep["head"]
+    y = (conv(body(prep, feats, dtype).to(dtype), kh, padding=0)
+         + bh).to(dtype)
+    f = prep["upsample"]
+    return resize_linear(y, f * y.shape[2], f * y.shape[3]).float()
 
 
 # ---- fold route: decode_fold on the conv kernels ----

@@ -5,7 +5,9 @@ Input is the JAX ``{"params", "batch_stats"}`` tree as numpy arrays (no
 JAX needed here); output keys are the smp/torchvision names the port's
 :class:`~wsiseg_tpu_torch.models.ynet.YNet` uses. Conv kernels go HWIO →
 OIHW with ``permute(3, 2, 0, 1)``, dense kernels (in, out) → (out, in).
-Unet + BasicBlock trees only, like the rest of the port.
+Every decoder family (Unet, Linknet, FPN, PSPNet) and every encoder
+(BasicBlock and Bottleneck); the decoder names are
+``convert_ynet_state_dict``'s (``torch_import.py:106-117``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,19 @@ import numpy as np
 import torch
 
 _LAYER_RE = re.compile(r"^layer(\d+)_(\d+)$")
+# flax decoder module path → the port's conv or BN prefix
+_DECODER = tuple((re.compile(pat), target) for pat, target in (
+    (r"^block(\d+)/conv(\d)$", "decoder.blocks.{0}.conv{1}.0"),
+    (r"^block(\d+)/bn(\d)$", "decoder.blocks.{0}.conv{1}.1"),
+    (r"^lat(\d)$", "decoder.lat{0}"),
+    (r"^seg(\d)_conv(\d)$", "decoder.seg{0}.conv{1}.0"),
+    (r"^seg(\d)_bn(\d)$", "decoder.seg{0}.conv{1}.1"),
+    (r"^psp(\d)_conv$", "decoder.psp{0}.0"),
+    (r"^psp(\d)_bn$", "decoder.psp{0}.1"),
+    (r"^fuse_conv$", "decoder.fuse.0"),
+    (r"^fuse_bn$", "decoder.fuse.1"),
+    (r"^seg_head$", "segmentation_head.0"),
+))
 
 
 def _conv(k) -> torch.Tensor:
@@ -34,6 +49,37 @@ def _bn(sd: Dict, prefix: str, params: Mapping, stats: Mapping) -> None:
     sd[prefix + ".running_mean"] = _vec(stats["mean"])
     sd[prefix + ".running_var"] = _vec(stats["var"])
     sd[prefix + ".num_batches_tracked"] = torch.tensor(0)
+
+
+def _modules(tree: Mapping, prefix: str = ""):
+    """(path, leaves) of every conv (``kernel``) or BatchNorm (``scale``)
+    module under a flax params tree."""
+    for name, node in tree.items():
+        path = f"{prefix}{name}"
+        if "kernel" in node or "scale" in node:
+            yield path, node
+        else:
+            yield from _modules(node, path + "/")
+
+
+def _decoder(sd: Dict, dp: Mapping, db: Mapping) -> None:
+    for path, p in _modules(dp):
+        for pattern, target in _DECODER:
+            m = pattern.match(path)
+            if m is not None:
+                break
+        else:
+            raise ValueError(f"unknown flax decoder module {path!r}")
+        prefix = target.format(*m.groups())
+        if "scale" in p:
+            stats = db
+            for key in path.split("/"):
+                stats = stats[key]
+            _bn(sd, prefix, p, stats)
+        else:
+            sd[prefix + ".weight"] = _conv(p["kernel"])
+            if "bias" in p:
+                sd[prefix + ".bias"] = _vec(p["bias"])
 
 
 def _dense(sd: Dict, prefix: str, p: Mapping) -> None:
@@ -56,22 +102,15 @@ def from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
             continue
         pre = f"encoder.layer{m.group(1)}.{m.group(2)}"
         b = eb[name]
-        for k in (1, 2):
-            sd[f"{pre}.conv{k}.weight"] = _conv(p[f"conv{k}"]["kernel"])
-            _bn(sd, f"{pre}.bn{k}", p[f"bn{k}"], b[f"bn{k}"])
+        for k in (1, 2, 3):
+            if f"conv{k}" in p:         # conv3/bn3: Bottleneck only
+                sd[f"{pre}.conv{k}.weight"] = _conv(p[f"conv{k}"]["kernel"])
+                _bn(sd, f"{pre}.bn{k}", p[f"bn{k}"], b[f"bn{k}"])
         if "down_conv" in p:
             sd[f"{pre}.downsample.0.weight"] = _conv(p["down_conv"]["kernel"])
             _bn(sd, f"{pre}.downsample.1", p["down_bn"], b["down_bn"])
 
-    dp, db = params["decoder"], stats["decoder"]
-    for i in range(5):
-        p, b = dp[f"block{i}"], db[f"block{i}"]
-        for k in (1, 2):
-            pre = f"decoder.blocks.{i}.conv{k}"
-            sd[pre + ".0.weight"] = _conv(p[f"conv{k}"]["kernel"])
-            _bn(sd, pre + ".1", p[f"bn{k}"], b[f"bn{k}"])
-    sd["segmentation_head.0.weight"] = _conv(dp["seg_head"]["kernel"])
-    sd["segmentation_head.0.bias"] = _vec(dp["seg_head"]["bias"])
+    _decoder(sd, params["decoder"], stats["decoder"])
 
     _dense(sd, "classifier.fc.0", params["classifier"]["fc"])
     _dense(sd, "regressor.fc.0", params["regressor"]["fc1"])

@@ -1,16 +1,25 @@
 """Whole-image dense-inference forward: stem kernel + functional Y-Net —
 counterpart of ``wsiseg_tpu/models/infer_fast.py``
-(``_segment_from_packed``, Unet decoder), in its two branches:
+(``_segment_from_packed``), in its two branches:
 
-- default (JAX v2 branch, ``infer_fast.py:192-227``): the fused stem
+- default (JAX v2 branch, ``infer_fast.py:192-227``), every decoder family
+  and encoder: the fused stem
   (:func:`wsiseg_tpu_torch.ops.stem.stem_pool_conv`) emits
   ``space_to_depth(c1)`` and the pooled c1; the ResNet stages
-  (:func:`.fast_encoder.encode_stages`) and the cell-domain Unet tail
-  (:func:`.fast_decoder.decode_cells`) follow;
-- fold (``infer_fast.py:229-253``): the native stem
-  (:func:`wsiseg_tpu_torch.ops.stem.stem_conv`) emits c1, the stages start
-  from its max-pool, and :func:`.fast_decoder.decode_fold` runs the decoder
-  on the conv kernels (:mod:`wsiseg_tpu_torch.ops.conv9`).
+  (:func:`.fast_encoder.encode_stages`, Basic or Bottleneck blocks) follow,
+  then the family's decoder: the cell-domain Unet tail
+  (:func:`.fast_decoder.decode_cells`) or Linknet tail
+  (:func:`.fast_decoder.decode_linknet_cells`), both taking the stem's
+  ``space_to_depth(c1)`` as their block-3 skip and emitting s2d(4) head
+  planes, or FPN/PSPNet (:func:`.fast_decoder.decode_native`, native
+  full-resolution logits: ``NATIVE_DECODERS``);
+- fold (``infer_fast.py:229-253``), Unet on BasicBlock encoders only: the
+  native stem (:func:`wsiseg_tpu_torch.ops.stem.stem_conv`) emits c1, the
+  stages start from its max-pool, and :func:`.fast_decoder.decode_fold`
+  runs the decoder on the conv kernels (:mod:`wsiseg_tpu_torch.ops.conv9`).
+  Any other pair raises ``ValueError`` (:func:`check_fold`), where the
+  JAX fold branch runs BasicBlock code on Bottleneck parameters
+  (ROADMAP.md §3).
 
 Weights, the stem kernel's cell-form operand included, are prepared once
 by :func:`prepare_fast`. No TPU sublane packer
@@ -27,11 +36,33 @@ import numpy as np
 import torch
 
 from wsiseg_tpu_torch.models.fast_decoder import (decode_cells, decode_fold,
+                                                  decode_linknet_cells,
+                                                  decode_native,
                                                   prepare_decoder,
-                                                  prepare_fold)
+                                                  prepare_fold,
+                                                  prepare_linknet,
+                                                  prepare_native)
 from wsiseg_tpu_torch.models.fast_encoder import encode_stages, prepare_encoder
+from wsiseg_tpu_torch.models.resnet import is_bottleneck
 from wsiseg_tpu_torch.ops.stem import fold_from_encoder, pad_value, \
     prepare_stem_cells, stem_conv, stem_pool_conv
+
+#: decoders whose forward emits native (N, nc, H, W) logits; Unet and
+#: Linknet emit s2d(4) head planes
+NATIVE_DECODERS = ("FPN", "PSPNet")
+_PREPARE = {"Unet": prepare_decoder, "Linknet": prepare_linknet,
+            "FPN": prepare_native, "PSPNet": prepare_native}
+
+
+def check_fold(model) -> None:
+    """The fold route serves Unet on BasicBlock encoders only (JAX gates it
+    to Unet, ``engine.py:470-471``, and its fold branch has no Bottleneck
+    path, ``infer_fast.py:246``): raise ``ValueError`` for any other
+    model."""
+    if model.model_name != "Unet" or is_bottleneck(model.arch):
+        raise ValueError(
+            f"the fold route (fcn_fold) serves Unet on BasicBlock encoders "
+            f"(resnet18/34) only, not {model.model_name} on {model.arch}")
 
 
 @dataclass
@@ -43,6 +74,7 @@ class FastWeights:
     enc: List[List[Dict[str, object]]]
     dec: Dict[str, object]
     dtype: torch.dtype
+    family: str = "Unet"          # the model's decoder
     fold: Optional[Dict[str, list]] = None   # decode_fold's layer groups
     stem_cells: Optional[torch.Tensor] = None  # the stem kernel's operand
 
@@ -51,7 +83,10 @@ class FastWeights:
 def prepare_fast(model, mean: Sequence[float], std: Sequence[float],
                  dtype: torch.dtype, fold: bool = False) -> FastWeights:
     """Weights of :func:`segment_from_image`; ``fold`` also prepares the
-    fold route's decoder (:func:`prepare_fold`)."""
+    fold route's decoder (:func:`prepare_fold`; Unet on BasicBlock
+    encoders only, :func:`check_fold`)."""
+    if fold:
+        check_fold(model)
     # the stem runs in bf16 (the kernel's contract) unless an f32 oracle
     # run asks for f32 throughout
     w, b = fold_from_encoder(model.encoder, mean, std,
@@ -59,7 +94,8 @@ def prepare_fast(model, mean: Sequence[float], std: Sequence[float],
                              else torch.bfloat16)
     return FastWeights(w, b, pad_value(mean),
                        prepare_encoder(model.encoder, dtype),
-                       prepare_decoder(model, dtype), dtype,
+                       _PREPARE[model.model_name](model, dtype), dtype,
+                       model.model_name,
                        prepare_fold(model, dtype) if fold else None,
                        prepare_stem_cells(w))
 
@@ -70,7 +106,8 @@ def segment_from_image(fw: FastWeights, img_u8: torch.Tensor,
                        fold: bool = False) -> torch.Tensor:
     """(N, H, W, 3) u8 (H, W multiples of 32) → head logits. Default route:
     (N, 16·nc, H/4, W/4) s2d(4) planes in the compute dtype
-    (``planar_head``), else (N, nc, H, W) f32. ``fold=True`` (weights from
+    (``planar_head``), else (N, nc, H, W) f32; FPN and PSPNet always give
+    (N, nc, H, W) f32 (``NATIVE_DECODERS``). ``fold=True`` (weights from
     ``prepare_fast(..., fold=True)``): native stem, encoder, and
     :func:`decode_fold` on ``conv9`` per layer (the JAX engine's
     ``use_chain=False``), giving (N, 4·nc, H/2, W/2) s2d(2) f32 planes
@@ -88,8 +125,21 @@ def segment_from_image(fw: FastWeights, img_u8: torch.Tensor,
                                  fw.stem_cells)
     # NHWC kernel outputs are the channels_last NCHW tensors, no copy
     feats = encode_stages(fw.enc, pool.permute(0, 3, 1, 2), fw.dtype)
-    return decode_cells(fw.dec, feats, fw.dtype, s2d_head=planar_head,
-                        skip3_s2d=c1s2d.permute(0, 3, 1, 2))
+    return decode(fw, feats, c1s2d.permute(0, 3, 1, 2), planar_head)
+
+
+def decode(fw: FastWeights, feats: List[torch.Tensor],
+           skip3_s2d: torch.Tensor, planar_head: bool = True
+           ) -> torch.Tensor:
+    """The default route's decoder for the model's family, on the
+    encoder's pyramid and the stem's ``space_to_depth(c1)``: Unet's or
+    Linknet's cell-domain tail (s2d(4) planes with ``planar_head``), or
+    FPN's / PSPNet's native (N, nc, H, W) f32 logits."""
+    if fw.family in NATIVE_DECODERS:
+        return decode_native(fw.dec, feats, fw.dtype)
+    tail = decode_cells if fw.family == "Unet" else decode_linknet_cells
+    return tail(fw.dec, feats, fw.dtype, s2d_head=planar_head,
+                skip3_s2d=skip3_s2d)
 
 
 def segment_whole_image(model, img_u8: np.ndarray, dataset_mean,
@@ -99,7 +149,8 @@ def segment_whole_image(model, img_u8: np.ndarray, dataset_mean,
     """Dense logits for one (H, W, 3) u8 image: (H, W, nc) f32, or the
     planar head with ``planar_head`` — (H/4, W/4, 16·nc) s2d(4), or
     (H/2, W/2, 4·nc) s2d(2) with ``fold`` — the JAX function's layouts
-    (``infer_fast.py:268-286``). ``device`` defaults to the model's."""
+    (``infer_fast.py:268-286``); FPN and PSPNet ignore ``planar_head``, as
+    there. ``device`` defaults to the model's."""
     device = device or next(model.parameters()).device
     fw = prepare_fast(model, dataset_mean, dataset_std, dtype, fold=fold)
     img = torch.from_numpy(np.ascontiguousarray(img_u8))[None].to(device)

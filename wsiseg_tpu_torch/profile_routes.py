@@ -1,11 +1,14 @@
-"""Where the device time goes on the two whole-slide routes, on one CUDA
+"""Where the device time goes on the whole-slide routes, on one CUDA
 device:
 
-    python -m wsiseg_tpu_torch.profile_routes [--slides 1] [--iters 3]
+    python -m wsiseg_tpu_torch.profile_routes [--slides 1] [--iters 3] \
+        [--model_name Unet] [--arch_encoder resnet18]
 
-For the default route and the fold route (``engine.fcn_fold``), at the
-bench geometry (a 4096×3072 level-2 synthetic slide, resnet18 Unet,
-4 classes, bf16, random weights from ``torch.Generator().manual_seed(0)``):
+For the default route and, where the model has one (Unet on resnet18/34),
+the fold route (``engine.fcn_fold``), at the bench geometry (a 4096×3072
+level-2 synthetic slide, 4 classes, bf16, random weights from
+``torch.Generator().manual_seed(0)``; resnet18 Unet unless the flags name
+another decoder family or encoder):
 
 - CUDA-event ms per stage of the forward (stem, encoder, decoder,
   postprocess + label packing), median of ``--iters``;
@@ -28,6 +31,8 @@ import time
 
 import numpy as np
 import torch
+
+from wsiseg_tpu_torch.config import KNOWN_ENCODERS, KNOWN_MODELS
 
 BENCH_HW = (3072, 4096)
 OWN = ("stem_sm90_kernel", "conv9_sm90_kernel", "conv_chain_sm90_kernel")
@@ -60,9 +65,9 @@ def _events_ms(fn, iters: int) -> float:
 def _stages(engine, imgs, masks, iters: int) -> dict:
     """CUDA-event ms of each forward stage, each stage timed on the
     previous stage's real output."""
-    from wsiseg_tpu_torch.models.fast_decoder import decode_cells, \
-        decode_fold
+    from wsiseg_tpu_torch.models.fast_decoder import decode_fold
     from wsiseg_tpu_torch.models.fast_encoder import encode_stages
+    from wsiseg_tpu_torch.models.infer_fast import decode
     from wsiseg_tpu_torch.ops.stem import stem_conv, stem_pool_conv
 
     fw = engine.fast
@@ -91,20 +96,20 @@ def _stages(engine, imgs, masks, iters: int) -> dict:
         out["encoder"] = _events_ms(lambda: encode_stages(
             fw.enc, pooled, fw.dtype), iters)
         skip = c1s2d.permute(0, 3, 1, 2)
-        y = decode_cells(fw.dec, feats, fw.dtype, s2d_head=True,
-                         skip3_s2d=skip)
-        out["decoder"] = _events_ms(lambda: decode_cells(
-            fw.dec, feats, fw.dtype, s2d_head=True, skip3_s2d=skip), iters)
+        y = decode(fw, feats, skip)
+        out["decoder"] = _events_ms(lambda: decode(fw, feats, skip), iters)
 
     def post():
-        labels, heat = engine._postprocess_s2d(y, masks)
+        labels, heat = engine._postprocess(y, masks)
         return engine._pack_labels(labels), heat
 
     out["postprocess"] = _events_ms(post, iters)
     return out
 
 
-def profile_route(fold: bool, n_slides: int, iters: int) -> dict:
+def profile_route(fold: bool, n_slides: int, iters: int,
+                  model_name: str = "Unet",
+                  arch_encoder: str = "resnet18") -> dict:
     from wsiseg_tpu_torch.config import default_config
     from wsiseg_tpu_torch.data.wsi_tiles import plan_slide
     from wsiseg_tpu_torch.infer.engine import DenseInferenceEngine
@@ -112,7 +117,8 @@ def profile_route(fold: bool, n_slides: int, iters: int) -> dict:
     from wsiseg_tpu_torch.slides import VirtualPyramidSlide
     from wsiseg_tpu_torch.data.bench_slide import level2_image
 
-    cfg = default_config(wsi_mask_pth="")
+    cfg = default_config(wsi_mask_pth="", model_name=model_name,
+                         arch_encoder=arch_encoder)
     engine = DenseInferenceEngine(
         init_ynet(cfg, torch.Generator().manual_seed(0)), cfg)
     engine.fcn_fold = fold
@@ -151,6 +157,7 @@ def profile_route(fold: bool, n_slides: int, iters: int) -> dict:
     kernel_ms = sum(by_class.values())
     return {
         "route": "fold" if fold else "default", "slides": n_slides,
+        "model_name": model_name, "arch_encoder": arch_encoder,
         "stage_ms": stages, "stage_sum_ms": sum(stages.values()),
         "wall_ms_per_run": wall_ms / iters,
         "kernel_ms_per_run": kernel_ms,
@@ -166,13 +173,19 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--slides", type=int, default=1)
     p.add_argument("--iters", type=int, default=3)
+    p.add_argument("--model_name", default="Unet", choices=KNOWN_MODELS)
+    p.add_argument("--arch_encoder", default="resnet18",
+                   choices=KNOWN_ENCODERS)
     ns = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_routes needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    for fold in (False, True):
-        print(json.dumps(profile_route(fold, ns.slides, ns.iters)),
+    fold_ok = ns.model_name == "Unet" and ns.arch_encoder in ("resnet18",
+                                                              "resnet34")
+    for fold in (False, True) if fold_ok else (False,):
+        print(json.dumps(profile_route(fold, ns.slides, ns.iters,
+                                       ns.model_name, ns.arch_encoder)),
               flush=True)
 
 
