@@ -32,6 +32,17 @@ just before and read just after:
   bench-geometry slides as one group (one K1 launch), ``device_throughput``
   and peak device memory at 1 and 2 slides in flight, and a 512×384
   slide's labels and heat, kernels (GPU) against plain versions (CPU);
+- the grid route (the reference-parity oracle) at the bench geometry:
+  ``device_throughput(mode="grid")`` over its 608 tiles, peak device
+  memory, one ``predict_tumorbed`` through the evaluator's grid branch,
+  and decode_fast's s2d(2) tail against ``YNet.segment`` on one tile
+  batch;
+- every other route of the engine on a 1024×768 slide (a level-1
+  pyramid for scan level 1), GPU against CPU: grid, cls, scan level 1,
+  scan_resize 2, chunked and banded FCN, streamed, and
+  keep_probs/keep_canvas on the fused route, plain and with
+  ``fcn_fold``; on the card streamed equals resident, banded equals
+  chunked, and an oversize slide takes the banded route;
 - ``decode_fold(use_chain=True)`` at bench geometry (the chain kernel);
 - ``conv3x3_small`` at its documented head shape (the kernel has no
   caller in the serving path; its phase is its path).
@@ -62,6 +73,7 @@ import torch.nn.functional as F
 from PIL import Image
 
 from wsiseg_tpu_torch.data.bench_slide import level2_image
+from wsiseg_tpu_torch.ops.stitch import gather_tiles, scatter_add_tiles
 from wsiseg_tpu_torch.probes import (bound, cuda_ms, stem_cost,
                                      stem_library_call, stem_weights)
 
@@ -518,7 +530,8 @@ def phase_serve(dev, tmp: str, fold: bool, n_slides: int) -> dict:
 
     reset_counts()
     t0 = time.time()
-    res = predict_tumorbed(engine, coll, ep=0, log=lambda s: None)
+    res = predict_tumorbed(engine, coll, ep=0, fcn=True,
+                               log=lambda s: None)
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = read_counts()
@@ -544,7 +557,10 @@ def phase_serve(dev, tmp: str, fold: bool, n_slides: int) -> dict:
     writers.save_overlay(cfg, "png", "bench", images[-1], hm / 255.0)
     png_s = time.time() - t0
     plan = next(iter(coll.items()))[1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     one = engine.device_throughput(plan, mode="fcn", iters=3)
+    peak = torch.cuda.max_memory_allocated()
     two = engine.device_throughput(plan, mode="fcn", iters=3,
                                    slides_in_flight=SERVE_IN_FLIGHT)
     print(f"[6] {route} route: served {n_slides} slides {w}x{h} in "
@@ -555,7 +571,9 @@ def phase_serve(dev, tmp: str, fold: bool, n_slides: int) -> dict:
           f"; device_throughput fcn: 1 slide {one['sec_per_slide']:.5f} "
           f"s/slide ({one['patches_per_sec']:.1f} p/s), 2 in flight "
           f"{two['sec_per_slide']:.5f} s/slide "
-          f"({two['patches_per_sec']:.1f} p/s)", flush=True)
+          f"({two['patches_per_sec']:.1f} p/s); peak at 1 slide "
+          f"{peak / 1e9:.4f} GB = {peak / (h * w):.1f} B per padded px",
+          flush=True)
     return counts
 
 
@@ -592,7 +610,8 @@ def phase_families(dev, tmp: str) -> int:
              for k, img in enumerate(images)], cfg)
         reset_counts()
         t0 = time.time()
-        res = predict_tumorbed(engine, coll, ep=0, log=lambda s: None)
+        res = predict_tumorbed(engine, coll, ep=0, fcn=True,
+                                   log=lambda s: None)
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = read_counts()
@@ -624,11 +643,226 @@ def phase_families(dev, tmp: str) -> int:
               f"device_throughput fcn: " + ", ".join(
                   f"{n} in flight {sec:.5f} s/slide, peak {gb:.4f} GB"
                   for n, (sec, gb) in tput.items())
-              + f"; 512x384 GPU-vs-CPU labels {lab:.6f} heat<=2/255 "
+              + f" ({tput[1][1] * 1e9 / (h * w):.1f} B per padded px at "
+              f"1 slide); 512x384 GPU-vs-CPU labels {lab:.6f} heat<=2/255 "
               f"{heat:.6f}", flush=True)
         assert lab >= 0.99 and heat >= 0.99, (family, lab, heat)
         del engine, cpu
         torch.cuda.empty_cache()
+    return launches
+
+
+def phase_grid(dev, tmp: str, smi: str) -> dict:
+    """The grid route, the reference-parity oracle, at the bench geometry
+    (resnet18 Unet, 4 classes, bf16): ``device_throughput(mode="grid")``
+    on the 4096×3072 slide (608 tiles of 512² at stride 128, batches of
+    ``cfg.infer_batch_size``) with the peak device memory around it, and
+    one ``predict_tumorbed`` through ``_pipelined_results``' grid branch
+    (the evaluator's default). The tile forward is the plain model in the
+    compute dtype, as in JAX: no kernel of the port is launched. Then
+    decode_fast's s2d(2) tail (``unet_segment_fast``) against
+    ``YNet.segment`` on one tile batch, timed."""
+    from wsiseg_tpu_torch.config import default_config
+    from wsiseg_tpu_torch.data.wsi_tiles import SlideCollection
+    from wsiseg_tpu_torch.infer.engine import DenseInferenceEngine
+    from wsiseg_tpu_torch.infer.evaluators import predict_tumorbed
+    from wsiseg_tpu_torch.models.fast_decoder import unet_segment_fast
+    from wsiseg_tpu_torch.models.ynet import init_ynet
+    from wsiseg_tpu_torch.slides import VirtualPyramidSlide
+
+    h, w = BENCH_HW
+    cfg = default_config(val_save_pth=os.path.join(tmp, "grid"),
+                         wsi_mask_pth="")
+    coll = SlideCollection([("bench_grid", VirtualPyramidSlide(
+        {2: level2_image(h, w, seed=20)}, num_levels=3))], cfg)
+    plan = coll.plans["bench_grid"]
+    engine = DenseInferenceEngine(
+        init_ynet(cfg, torch.Generator().manual_seed(0)), cfg, device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tp = engine.device_throughput(plan, mode="grid", iters=2)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.time()
+    res = predict_tumorbed(engine, coll, ep=0, log=lambda s: None)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    assert sum(counts.values()) == 0, \
+        f"the grid route runs the plain model, yet launched {counts}"
+    rec = res["bench_grid"]
+    assert rec["num_tiles"] == len(plan.grid) > 0
+    hm = np.asarray(Image.open(rec["heatmap"]))
+    assert hm.shape == (h, w), hm.shape
+    stages = _grid_stages(engine, plan)
+    net, prep = engine._tiles_net()
+    bs = cfg.infer_batch_size
+    x = torch.randn(bs, 3, cfg.tile_h, cfg.tile_w,
+                    generator=torch.Generator().manual_seed(1)).to(
+        dev, torch.bfloat16, memory_format=torch.channels_last)
+    with torch.no_grad():
+        fast = unet_segment_fast(net, prep, x, torch.bfloat16)
+        plain = net.segment(x)
+        err = (fast - plain).abs().max().item()
+        assert err <= 2 ** -4 * plain.abs().max().item(), err
+        fast_ms = cuda_ms(lambda: unet_segment_fast(net, prep, x,
+                                                    torch.bfloat16), 5)
+        seg_ms = cuda_ms(lambda: net.segment(x), 5)
+    print(f"[6c] grid route at {w}x{h}: {len(plan.grid)} tiles in batches "
+          f"of {bs}; device_throughput grid {tp['sec_per_slide']:.5f} "
+          f"s/slide ({tp['patches_per_sec']:.1f} p/s), peak "
+          f"{peak:.4f} GB; predict_tumorbed (grid branch) e2e {wall:.3f} "
+          f"s/slide (engine {rec['seconds']:.4f} s), mean heat u8 "
+          f"{hm.mean():.3f}; launches {counts}; one {bs}x{cfg.tile_h}x"
+          f"{cfg.tile_w} bf16 tile batch: unet_segment_fast (decode_fast "
+          f"s2d(2) tail) {fast_ms:.3f} ms, YNet.segment {seg_ms:.3f} ms, "
+          f"max|d| {err:.4g}; per batch (ms): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in stages.items())
+          + f" | {smi}", flush=True)
+    return counts
+
+
+def _grid_stages(engine, plan) -> dict:
+    """CUDA-event ms of the grid route's stages on its first full tile
+    batch: gather, forward, the sequential adds into the canvas, and the
+    slide's postprocess once."""
+    cfg = engine.cfg
+    img = engine._take(engine.stage_slide(plan))
+    xs, ys, _ = engine._pad_grid(plan.grid.xs, plan.grid.ys, engine.batch)
+    ys, xs = ys[0], xs[0]
+    canvas = torch.zeros(plan.stitch_hw + (cfg.num_classes,),
+                         dtype=torch.float32, device=img.device)
+    mask = engine._level_mask(plan, plan.canvas_hw)
+    with torch.no_grad():
+        tiles = gather_tiles(img, ys, xs, cfg.tile_h, cfg.tile_w)
+        seg = engine._seg_forward_tiles(tiles)
+        return {
+            "gather": cuda_ms(lambda: gather_tiles(img, ys, xs, cfg.tile_h,
+                                                   cfg.tile_w), 5),
+            "forward": cuda_ms(lambda: engine._seg_forward_tiles(tiles), 5),
+            "adds": cuda_ms(lambda: scatter_add_tiles(canvas, seg, ys, xs),
+                            5),
+            "postprocess (slide)": cuda_ms(lambda: engine._postprocess(
+                canvas, mask, out_hw=plan.canvas_hw), 5)}
+
+
+def phase_routes(dev) -> dict:
+    """Each route this slice serves, on small slides at full width
+    (resnet18 Unet, bf16), the card (kernel path) against the CPU (plain
+    path): the grid and cls modes, scan level 1 (grid, and the fused
+    route's canvas branch), scan_resize 2, the chunked FCN (chunk 512),
+    the banded FCN, the streamed grid, and keep_probs/keep_canvas on the
+    fused route plain and with fcn_fold; labels ≥ 99 % equal, heat within
+    2/255 on ≥ 99 %. On the card: streamed equals resident, banded equals
+    chunked, and a slide padded just over the engine's lowered
+    ``fcn_fast_max_px`` takes the banded route. Returns the kernel
+    launches of the GPU runs."""
+    from wsiseg_tpu_torch.config import default_config
+    from wsiseg_tpu_torch.data.wsi_tiles import plan_slide
+    from wsiseg_tpu_torch.infer.engine import DenseInferenceEngine
+    from wsiseg_tpu_torch.models.ynet import init_ynet
+    from wsiseg_tpu_torch.slides import SyntheticSlide, VirtualPyramidSlide
+
+    cfg = default_config(wsi_mask_pth="")
+    small = VirtualPyramidSlide({2: level2_image(768, 1024, seed=13)},
+                                num_levels=3)
+    level1 = SyntheticSlide(width=4096, height=3072, num_levels=3, seed=13)
+
+    def pair(mode="seg", fold=False, **kw):
+        c = cfg.replace(**kw)
+        out = []
+        for d in (dev, "cpu"):
+            e = DenseInferenceEngine(init_ynet(c, torch.Generator()
+                                               .manual_seed(0)), c,
+                                     mode=mode, device=d)
+            e.fcn_fold = fold
+            out.append(e)
+        return c, out
+
+    c2, base = pair()
+    c1, lvl1 = pair(scan_level=1)
+    cr, rsz = pair(scan_resize=2)
+    _, cls = pair(mode="cls")
+    _, fold = pair(fold=True)
+    p2, p1 = plan_slide("small", small, c2), plan_slide("l1", level1, c1)
+    pr = plan_slide("small", small, cr)
+    keep = dict(keep_probs=True, keep_canvas=True)
+    routes = [
+        ("grid", base, p2, lambda e, p: e.predict_slide(p), {}),
+        ("cls", cls, p2, lambda e, p: e.predict_slide(p), {}),
+        ("scan_level=1 grid", lvl1, p1, lambda e, p: e.predict_slide(p),
+         {}),
+        ("scan_level=1 fcn", lvl1, p1, lambda e, p: e.predict_slide_fcn(p),
+         {"stem_pool_conv": 1}),
+        ("scan_resize=2", rsz, pr, lambda e, p: e.predict_slide(p), {}),
+        ("chunked fcn", base, p2,
+         lambda e, p: e.predict_slide_fcn(p, chunk=512), {}),
+        ("banded fcn", base, p2,
+         lambda e, p: e.predict_slide_fcn_banded(p, chunk=512), {}),
+        ("streamed", base, p2, lambda e, p: e.predict_slide_streamed(p), {}),
+        ("keep", base, p2, lambda e, p: e.predict_slide_fcn(p, **keep),
+         {"stem_pool_conv": 1}),
+        ("keep fold", fold, p2, lambda e, p: e.predict_slide_fcn(p, **keep),
+         {"stem_conv": 1, "conv9": 11}),
+    ]
+    launches, gpu_res, msg = {}, {}, []
+    for name, (gpu, cpu), plan, run, want in routes:
+        reset_counts()
+        t0 = time.time()
+        a = run(gpu, plan)
+        torch.cuda.synchronize()
+        ta = time.time() - t0
+        counts = {k: v for k, v in read_counts().items() if v}
+        assert counts == want, f"{name}: launches {counts}, want {want}"
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        t0 = time.time()
+        b = run(cpu, plan)
+        tb = time.time() - t0
+        assert a.labels.shape == a.heatmap.shape == plan.canvas_hw
+        lab = float((a.labels == b.labels).mean())
+        heat = float((np.abs(a.heatmap - b.heatmap) <= 2 / 255 + 1e-6)
+                     .mean())
+        msg.append(f"{name} GPU {ta:.3f} s / CPU {tb:.3f} s labels "
+                   f"{lab:.6f} heat<=2/255 {heat:.6f}")
+        assert lab >= 0.99 and heat >= 0.99, (name, lab, heat)
+        if name.startswith("keep"):
+            nc = cfg.num_classes
+            assert a.canvas.shape == a.probs.shape == plan.canvas_hw + (nc,)
+            assert np.isfinite(a.canvas).all() and np.isfinite(a.probs).all()
+            served = gpu.predict_slide_fcn(plan)
+            assert (served.labels == a.labels).all(), name
+        gpu_res[name] = a
+    print("[6d] routes on a 1024x768 slide (level 1: 1024x768 of a "
+          "4096x3072 pyramid), GPU against CPU: " + "; ".join(msg),
+          flush=True)
+
+    gpu = base[0]
+    resident = gpu.predict_slide(p2)
+    streamed = gpu_res["streamed"]
+    assert (streamed.labels == resident.labels).all()
+    dh = float(np.abs(streamed.heatmap - resident.heatmap).max())
+    assert dh <= 1e-5, dh
+    chunked, banded = gpu_res["chunked fcn"], gpu_res["banded fcn"]
+    assert (chunked.labels == banded.labels).all()
+    assert (chunked.heatmap == banded.heatmap).all()
+    hp, wp = gpu._fcn_fast_dims(*p2.stitch_hw)
+    gpu.fcn_fast_max_px = hp * wp - 1
+    took, banded_call = [], gpu.predict_slide_fcn_banded
+    gpu.predict_slide_fcn_banded = \
+        lambda *a, **k: took.append(k) or banded_call(*a, **k)
+    reset_counts()
+    over = gpu.predict_slide_fcn(p2)
+    counts = {k: v for k, v in read_counts().items() if v}
+    assert len(took) == 1 and not counts, (took, counts)
+    ref = banded_call(p2)
+    assert (over.labels == ref.labels).all()
+    assert (over.heatmap == ref.heatmap).all()
+    print(f"[6d] on the card: streamed == resident (labels equal, heat "
+          f"max|d| {dh:.3g}); banded == chunked (chunk 512: labels and "
+          f"heat equal); a {wp}x{hp} slide over fcn_fast_max_px "
+          f"{hp * wp - 1} took the banded route ({took}), no kernel "
+          f"launched; launches {launches}", flush=True)
     return launches
 
 
@@ -713,10 +947,14 @@ def main() -> None:
         default = phase_serve(dev, tmp, fold=False, n_slides=3)
         fold = phase_serve(dev, tmp, fold=True, n_slides=2)
         families = phase_families(dev, tmp)
+        phase_grid(dev, tmp, smi)
+    routes = phase_routes(dev)
     chain = phase_fold_chain(dev)
     head = phase_head(dev)
-    launches = {"stem_pool_conv": default["stem_pool_conv"] + families,
-                "stem_conv": fold["stem_conv"], "conv9": fold["conv9"],
+    launches = {"stem_pool_conv": default["stem_pool_conv"] + families
+                + routes["stem_pool_conv"],
+                "stem_conv": fold["stem_conv"] + routes["stem_conv"],
+                "conv9": fold["conv9"] + routes["conv9"],
                 "conv_chain": chain["conv_chain"],
                 "conv3x3_small": head["conv3x3_small"]}
     launches.update({k: v["launches"] for k, v in prb.items()})

@@ -5,7 +5,9 @@ conv3x3_small and a one-layer conv_chain; the fused TMA/wgmma chain as
 conv_chain)
 against its plain PyTorch version, and the engine's kernel path (GPU)
 against its plain path (CPU) on the default and the fold route, and for
-each decoder family on the resnet50 encoder.
+each decoder family on the resnet50 encoder; the grid route (seg and cls)
+GPU against CPU, and the streamed grid against the resident one on the
+card.
 They skip where ``torch.cuda.is_available()`` is False. This file imports
 no JAX, so it also runs on a machine without it:
 
@@ -288,3 +290,48 @@ def test_family_engine_gpu_matches_cpu(cuda_device, family):
     assert (gpu.labels == cpu.labels).mean() >= 0.99
     assert (np.abs(gpu.heatmap - cpu.heatmap) <= 2 / 255 + 1e-6).mean() \
         >= 0.99
+
+
+@pytest.mark.parametrize("mode", ["seg", "cls"])
+def test_grid_gpu_matches_cpu(cuda_device, mode):
+    """The grid route (tile forward in bf16, sequential overlap-add) on
+    the card against the same route on the CPU, 64-px tiles at stride 32
+    over a 192×256 slide: the logit canvas within 2^-5·max|canvas| (8
+    bf16 ulps), labels equal wherever the CPU's top two probabilities are
+    1e-2 apart (random-init logits are near-uniform, and in cls mode one
+    flipped tile decision repaints a 32×32 block, 2 % of the image), heat
+    within 2/255 on ≥ 99 %."""
+    cfg = default_config(tile_w=64, tile_h=64, tile_stride_w=32,
+                         tile_stride_h=32)
+    plan = plan_slide("syn", SyntheticSlide(width=4096, height=3072,
+                                            num_levels=3, seed=11), cfg)
+    gpu, cpu = (DenseInferenceEngine(init_ynet(cfg, torch.Generator(
+        ).manual_seed(0)), cfg, mode=mode, device=d).predict_slide(
+        plan, keep_canvas=True, keep_probs=True)
+        for d in (cuda_device, "cpu"))
+    assert gpu.labels.shape == (192, 256)
+    np.testing.assert_allclose(gpu.canvas, cpu.canvas, rtol=0,
+                               atol=2 ** -5 * np.abs(cpu.canvas).max())
+    top2 = np.sort(cpu.probs, axis=-1)[..., -2:]
+    decided = (top2[..., 1] - top2[..., 0]) > 1e-2
+    assert decided.mean() > 0.5
+    np.testing.assert_array_equal(gpu.labels[decided], cpu.labels[decided])
+    assert (np.abs(gpu.heatmap - cpu.heatmap) <= 2 / 255 + 1e-6).mean() \
+        >= 0.99
+
+
+def test_streamed_equals_resident_on_gpu(cuda_device):
+    """Tile batches through pinned memory and the prefetch stream give
+    the resident route's result on the card: labels equal, heat within
+    1e-5."""
+    cfg = default_config(tile_w=64, tile_h=64, tile_stride_w=32,
+                         tile_stride_h=32, infer_batch_size=8)
+    plan = plan_slide("syn", SyntheticSlide(width=4096, height=3072,
+                                            num_levels=3, seed=11), cfg)
+    eng = DenseInferenceEngine(init_ynet(cfg, torch.Generator(
+        ).manual_seed(0)), cfg, device=cuda_device)
+    res = eng.predict_slide(plan, keep_canvas=True)
+    st = eng.predict_slide_streamed(plan, nthreads=2, keep_canvas=True)
+    np.testing.assert_array_equal(st.labels, res.labels)
+    np.testing.assert_allclose(st.heatmap, res.heatmap, atol=1e-5)
+    np.testing.assert_array_equal(st.canvas, res.canvas)

@@ -193,7 +193,7 @@ def test_pipelined_groups_keep_pairing(cfg, engine):
     coll = SlideCollection(slides, cfg)
     engine.slides_in_flight = 2
     try:
-        out = list(_pipelined_results(engine, coll))
+        out = list(_pipelined_results(engine, coll, fcn=True))
     finally:
         engine.slides_in_flight = 1
     assert [name for name, _, _ in out] == ["s0", "s1", "s2"]
@@ -280,22 +280,17 @@ def test_cli_defaults_to_cuda(tmp_path):
               ""])
 
 
-@pytest.mark.parametrize("what", ["chunk", "keep_probs", "cls", "scan_level",
-                                  "grid"])
-def test_unported_routes_raise(cfg, slide, engine, what):
+@pytest.mark.parametrize("what", ["sharded", "pretrained_pth"])
+def test_unported_routes_raise(cfg, what):
+    """What the port still lacks raises and names its ROADMAP item: the
+    sharded routes (Multi-GPU) and pretrained grafting (training)."""
+    from wsiseg_tpu_torch.cli.eval_tumorbed import main
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what in ("chunk", "keep_probs"):
-            plan = plan_slide("syn", slide, cfg)
-            kw = {"chunk": 512} if what == "chunk" else {"keep_probs": True}
-            engine.predict_slide_fcn(plan, **kw)
-        elif what == "cls":
-            DenseInferenceEngine(engine.model, cfg, mode="cls", device="cpu")
-        elif what == "scan_level":
-            DenseInferenceEngine(engine.model, cfg.replace(scan_level=1),
-                                 device="cpu")
+        if what == "sharded":
+            main(["--sharded", "--raw_val_pth", "/nonexistent"])
         else:
-            from wsiseg_tpu_torch.cli.eval_tumorbed import main
-            main(["--grid", "--raw_val_pth", "/nonexistent"])
+            from wsiseg_tpu_torch.cli.common import restore_for_eval
+            restore_for_eval(cfg.replace(pretrained_pth="/nonexistent.pth"))
 
 
 def test_port_imports_no_jax():

@@ -35,8 +35,9 @@ def restore_for_eval(cfg: Config):
 
 def parse_eval_flags(argv):
     """Mode pre-parser for the eval CLIs (the JAX package's flags plus
-    ``--device``). FCN is the default; ``--grid``, ``--streamed`` and
-    ``--sharded`` are parsed so that the eval entry can refuse them by
+    ``--device``). FCN is the default; ``--grid`` selects the reference
+    overlap-add oracle, ``--streamed`` the host-decoded tile batches;
+    ``--sharded`` is parsed so that the eval entry can refuse it by
     name."""
     p = argparse.ArgumentParser(add_help=False)
     p.add_argument("--grid", action="store_true",

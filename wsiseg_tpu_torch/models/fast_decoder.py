@@ -24,6 +24,11 @@ engine is built. Every conv of :func:`decode_cells` is a plain
 :func:`decode_native` runs FPN and PSPNet to native full-resolution
 logits (JAX ``infer_fast._apply_native_decoder``).
 
+:func:`decode_fast` (JAX ``decode_fast``) is the batched-tile Unet
+decoder of the grid, cls and chunked FCN routes: blocks 0-3 native,
+block4 + head in s2d(2) cells, on the plain encoder
+(:func:`unet_segment_fast`).
+
 :func:`decode_fold` is the fold route's decoder (JAX ``decode_fold``): its
 layer groups run on the port's hand-written conv kernels
 (:mod:`wsiseg_tpu_torch.ops.conv9`), with weights prepared once by
@@ -339,6 +344,56 @@ def decode_linknet_cells(prep: Dict[str, object],
     if s2d_head:
         return y.to(dtype)
     return depth_to_space(y, S2D_HEAD_F).float()
+
+
+# ---- batched tiles: block4 + head in s2d(2) cells ----
+
+@torch.no_grad()
+def prepare_decode_fast(model, dtype: torch.dtype) -> Dict[str, object]:
+    """All weight transforms of :func:`decode_fast`, done once: blocks 0-3
+    native; block4's conv1 ``upfold``, conv2 and the head
+    ``s2d_kernel_f(·, 2)``, their affines and the head bias tiled 4×."""
+    blocks = model.decoder.blocks
+    prep: Dict[str, object] = {
+        f"b{i}c{cj}": _layer(getattr(blocks[i], f"conv{cj}"), dtype)
+        for i in range(4) for cj in (1, 2)}
+    b4, head = blocks[4], model.segmentation_head[0]
+    prep["b4c1"] = _layer(b4.conv1, dtype, upfold_kernel(hwio(b4.conv1[0])),
+                          4)
+    prep["b4c2"] = _layer(b4.conv2, dtype,
+                          s2d_kernel_f(hwio(b4.conv2[0]), 2), 4)
+    prep["head"] = (oihw(s2d_kernel_f(hwio(head), 2), dtype),
+                    _chan(head.bias.detach().float(), 4))
+    return prep
+
+
+def decode_fast(prep: Dict[str, object], feats: List[torch.Tensor],
+                dtype: torch.dtype, s2d_head: bool = False) -> torch.Tensor:
+    """U-Net decoder forward with the s2d(2) block4 tail (JAX
+    ``decode_fast``, ``fast_decoder.py:225-277``): blocks 0-3 native,
+    block4 + seg head at half resolution through :func:`upfold_kernel`
+    and :func:`s2d_kernel_f`. Each conv is followed by its f32 BN affine
+    and ReLU, rounded to ``dtype``. Returns (B, nc, H, W) f32 logits, or
+    with ``s2d_head`` the (B, 4·nc, H/2, W/2) s2d(2) f32 logits."""
+    xx = feats[0].to(dtype)
+    for i, skip in enumerate(feats[1:]):
+        xx = torch.cat([upsample2x(xx), skip.to(dtype)], dim=1)
+        for cj in (1, 2):
+            xx = _cbr(xx, prep[f"b{i}c{cj}"], dtype)
+    xs = _cbr(_cbr(xx, prep["b4c1"], dtype), prep["b4c2"], dtype)
+    kh, bh = prep["head"]
+    y = conv(xs, kh) + bh
+    return y if s2d_head else depth_to_space(y, 2)
+
+
+def unet_segment_fast(net, prep: Dict[str, object], x: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """The Y-Net's plain encoder (``net.encode``, e.g. a
+    :func:`~wsiseg_tpu_torch.models.ynet.compute_copy`) then
+    :func:`decode_fast` (JAX ``unet_segment_fast``, ``:604-621``, which
+    keeps the flax encoder for batched tiles): (B, nc, H, W) f32 logits of
+    the normalized (B, 3, H, W) input, H and W even."""
+    return decode_fast(prep, net.encode(x.to(dtype)), dtype)
 
 
 # ---- FPN and PSPNet: native full-resolution logits ----

@@ -11,12 +11,17 @@ and Linknet (32 → nc), a 1×1 conv for FPN (128 → nc) and PSPNet
 ``jax.image.resize`` semantics) by 4 and by 32 to the input size.
 
 :meth:`YNet.segment` is the plain eager forward — the CPU oracle the fast
-path (:mod:`.infer_fast`) is held against.
+path (:mod:`.infer_fast`) is held against. :meth:`YNet.encode` and
+:meth:`YNet.classify` are the encoder-only entries of the grid and cls
+modes (reference utils/eval.py:196-200). :func:`compute_copy` gives the
+same model in a compute dtype for tile batches, rounded where the flax
+modules applied in that dtype round.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import copy
+from typing import Dict, List
 
 import torch
 from torch import nn
@@ -69,9 +74,57 @@ class YNet(nn.Module):
         return {"seg": self._seg(feats), "cls": self.classifier(feats[0]),
                 "reg": self.regressor(feats[0])}
 
+    def encode(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """The encoder's pyramid [c5, c4, c3, c2, c1]."""
+        return self.encoder(x)
+
     def segment(self, x: torch.Tensor) -> torch.Tensor:
         """encoder → decoder → seg head: (B, num_classes, H, W) float32."""
         return self._seg(self.encoder(x))
+
+    def classify(self, x: torch.Tensor) -> torch.Tensor:
+        """encoder → classifier: (B, num_classes) float32 logits."""
+        return self.classifier(self.encoder(x)[0])
+
+
+class FlaxBatchNorm(nn.Module):
+    """Inference BatchNorm as flax applies it to an input in a low
+    precision: ``(x - mean) · scale/sqrt(var + eps) + bias`` in f32 (the
+    statistics are f32, so flax's arithmetic promotes), the result rounded
+    to the input's dtype."""
+
+    def __init__(self, bn: nn.BatchNorm2d):
+        super().__init__()
+        with torch.no_grad():
+            self.register_buffer("mean", bn.running_mean.float().view(
+                1, -1, 1, 1).clone())
+            self.register_buffer("mul", (torch.rsqrt(
+                bn.running_var.float() + bn.eps)
+                * bn.weight.float()).view(1, -1, 1, 1))
+            self.register_buffer("bias", bn.bias.float().view(
+                1, -1, 1, 1).clone())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return ((x.float() - self.mean) * self.mul + self.bias).to(x.dtype)
+
+
+@torch.no_grad()
+def compute_copy(model: YNet, dtype: torch.dtype) -> YNet:
+    """A frozen copy of ``model`` for tile batches in ``dtype`` — the JAX
+    grid path runs the flax Y-Net in ``cfg.compute_dtype``: conv and dense
+    weights in ``dtype`` (each conv's output rounded to ``dtype``, as
+    flax's), each BatchNorm a :class:`FlaxBatchNorm`, conv weights in
+    ``channels_last``. Feed it inputs in ``dtype``."""
+    m = copy.deepcopy(model)
+    for mod in list(m.modules()):
+        for name, child in list(mod.named_children()):
+            if isinstance(child, nn.BatchNorm2d):
+                setattr(mod, name, FlaxBatchNorm(child))
+    for mod in m.modules():
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            mod.to(dtype)
+    m = m.to(memory_format=torch.channels_last).eval()
+    return m.requires_grad_(False)
 
 
 def build_ynet(cfg: Config) -> YNet:

@@ -100,7 +100,7 @@ def _stages(engine, imgs, masks, iters: int) -> dict:
         out["decoder"] = _events_ms(lambda: decode(fw, feats, skip), iters)
 
     def post():
-        labels, heat = engine._postprocess(y, masks)
+        labels, heat = engine._postprocess_planes(y, masks)
         return engine._pack_labels(labels), heat
 
     out["postprocess"] = _events_ms(post, iters)
