@@ -57,6 +57,7 @@ any failure or when no CUDA device is present. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import csv
 import importlib.util
 import json
 import os
@@ -502,6 +503,86 @@ def phase_cli(dev, tmp: str) -> None:
           f"launches; " + "; ".join(msg), flush=True)
 
 
+def _eval_limits(gt: np.ndarray) -> dict:
+    """GPU-against-CPU limits of ``eval``'s per-slide metrics. Labels
+    agree on >= 99 % of the N pixels (phase 5's limit; >= 99.8 % measured
+    on these slides), so at most k = 0.01·N flip. A flipped pixel moves
+    ``acc`` by at most 1/n_gt (n_gt: GT foreground) and ``iou_fg`` by at
+    most 1/n_union <= 1/n_gt; ``s`` = 1 - A/D moves its numerator and
+    denominator by at most 3 each, with D >= 1.5·n_gt, so by at most
+    4/n_gt while A <= D. The tumor bed is an opening and a hull, not local
+    in the labels: ``iou_tb`` gets 0.05."""
+    lim = 0.01 * gt.size / max(int((gt > 0).sum()), 1)
+    return {"acc": lim, "acc_masked": lim, "iou_fg": lim, "s": 4 * lim,
+            "s_masked": 4 * lim, "iou_tb": 0.05}
+
+
+EVAL_KEYS = ("acc", "s", "acc_masked", "s_masked", "iou_fg", "iou_tb",
+             "num_tiles", "seconds", "patches_per_sec")
+
+
+def _write_gt(pth: str, gt: np.ndarray) -> None:
+    """``<slide>_mask.png`` and ``<slide>_tumor_bed.png`` beside a slide,
+    as preprocess/mk_gt.py writes them."""
+    Image.fromarray(gt).save(pth + "_mask.png")
+    Image.fromarray((gt >= 2).astype(np.uint8) * 255).save(
+        pth + "_tumor_bed.png")
+
+
+def phase_eval_cli(dev, tmp: str) -> int:
+    """``python -m wsiseg_tpu_torch eval`` on phase 5's two .npy slides
+    and checkpoint, with GT rasters from ``SyntheticSlide.ground_truth(2)``
+    beside each: K1 launched, every metric key present, half-size color
+    masks; then the same slides with ``--device cpu``, each metric within
+    ``_eval_limits``. Returns the K1 launches of the card's run."""
+    from wsiseg_tpu_torch.__main__ import main
+    from wsiseg_tpu_torch.slides import SyntheticSlide
+
+    slides_dir = os.path.join(tmp, "slides")
+    names = sorted(f for f in os.listdir(slides_dir) if f.endswith(".npy"))
+    limits = {}
+    for k, name in enumerate(names):
+        gt = SyntheticSlide(width=2048, height=1536, num_levels=3,
+                            seed=k).ground_truth(2).astype(np.uint8)
+        _write_gt(os.path.join(slides_dir, name), gt)
+        limits[name] = _eval_limits(gt)
+    args = ["eval", "--raw_val_pth", slides_dir, "--eval_model_pth",
+            os.path.join(tmp, "ckpt"), "--wsi_mask_pth", "", "--tile_w",
+            "256", "--tile_h", "256"]
+    out, secs = {}, {}
+    for device, flag in (("cuda", []), ("cpu", ["--device", "cpu"])):
+        val = os.path.join(tmp, f"eval_{device}")
+        reset_counts()
+        t0 = time.time()
+        out[device] = main(args + ["--val_save_pth", val] + flag)
+        torch.cuda.synchronize()
+        secs[device] = time.time() - t0
+        if device == "cuda":
+            launches = read_counts()["stem_pool_conv"]
+            assert launches > 0, "eval never launched the stem kernel"
+            for name in names:
+                png = np.asarray(Image.open(os.path.join(
+                    val, "0", f"{name}_128.png")))
+                assert png.shape == (192, 256, 3), png.shape
+    gpu, cpu = out["cuda"], out["cpu"]
+    assert set(gpu) == set(cpu) == set(names) | {"_mean_tb_iou"}, set(gpu)
+    msg = []
+    for name in names:
+        for key in EVAL_KEYS:
+            assert key in gpu[name] and np.isfinite(gpu[name][key]), \
+                (name, key)
+        d = {k: abs(gpu[name][k] - cpu[name][k]) for k in limits[name]}
+        msg.append(f"{name} " + ", ".join(
+            f"{k} {gpu[name][k]:.4f}/{cpu[name][k]:.4f} (|d| {v:.4g} <= "
+            f"{limits[name][k]:.4g})" for k, v in d.items()))
+        bad = {k: v for k, v in d.items() if not v <= limits[name][k]}
+        assert not bad, (name, bad, limits[name])
+    print(f"[5b] eval CLI: 2 slides, color masks (192, 256, 3), {launches} "
+          f"stem launches, GPU {secs['cuda']:.3f} s / CPU {secs['cpu']:.3f} "
+          f"s; GPU/CPU: " + "; ".join(msg), flush=True)
+    return launches
+
+
 def phase_serve(dev, tmp: str, fold: bool, n_slides: int) -> dict:
     """predict_tumorbed on bench-geometry slides, two in flight, on the
     default or the fold route; then device_throughput with 1 and 2 slides
@@ -720,6 +801,242 @@ def phase_grid(dev, tmp: str, smi: str) -> dict:
               f"{k} {v:.3f}" for k, v in stages.items())
           + f" | {smi}", flush=True)
     return counts
+
+
+def _bench_gt(img: np.ndarray) -> np.ndarray:
+    """A class-coded GT raster for a bench-geometry image: the blobs
+    (tissue) in classes 1-3 by their colour, the white background 0."""
+    tissue = img[..., 1] < 150
+    return (tissue * (1 + (img[..., 2] > 160) + (img[..., 0] > 130))
+            ).astype(np.uint8)
+
+
+def _host_ms(fn):
+    """(result, ms) of one call, the card synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def phase_eval_full(dev, tmp: str, smi: str) -> int:
+    """``predict_wsis`` (what ``eval`` runs per slide) on one
+    bench-geometry slide with GT rasters beside it: resnet18 Unet, bf16,
+    the FCN route (one K1 launch), every metric key, a half-size color
+    mask, the wall seconds and peak device memory. Then the per-slide
+    split on the served labels: the engine, the tumor bed's device
+    morphology (opening; perimeter and dilation) and host hull,
+    ``pred_to_mask``, the color mask's composite and writer, the GT
+    loading and the metrics; and ``extract_tumor_bed`` and
+    ``pred_to_mask`` (plain and perim) on the card held exactly equal to
+    the CPU on the same labels. Returns the K1 launches of the
+    ``predict_wsis`` run."""
+    from wsiseg_tpu_torch.config import default_config
+    from wsiseg_tpu_torch.data.wsi_tiles import SlideCollection
+    from wsiseg_tpu_torch.infer import metrics as M
+    from wsiseg_tpu_torch.infer import writers
+    from wsiseg_tpu_torch.infer.engine import DenseInferenceEngine, \
+        extract_tumor_bed
+    from wsiseg_tpu_torch.infer.evaluators import _load_gt_artifacts, \
+        plan_mask_resized, predict_wsis
+    from wsiseg_tpu_torch.models.ynet import init_ynet
+    from wsiseg_tpu_torch.ops.hull import convex_hull_image
+    from wsiseg_tpu_torch.ops.morphology import bwperim, dilate, opening
+    from wsiseg_tpu_torch.ops.threshold import pred_to_mask
+    from wsiseg_tpu_torch.slides import VirtualPyramidSlide
+
+    h, w = BENCH_HW
+    cfg = default_config(val_save_pth=os.path.join(tmp, "eval_full"),
+                         wsi_mask_pth="")
+    img = level2_image(h, w, seed=50)
+    spath = os.path.join(tmp, "bench_eval")
+    _write_gt(spath, _bench_gt(img))
+    coll = SlideCollection([("bench_eval", VirtualPyramidSlide(
+        {2: img}, num_levels=3), spath)], cfg)
+    plan = coll.plans["bench_eval"]
+    engine = DenseInferenceEngine(
+        init_ynet(cfg, torch.Generator().manual_seed(0)), cfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    res = predict_wsis(engine, coll, ep=0, fcn=True, log=lambda s: None)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    assert counts["stem_pool_conv"] == 1 and sum(counts.values()) == 1, \
+        counts
+    rec = res["bench_eval"]
+    for key in EVAL_KEYS:
+        assert key in rec and np.isfinite(rec[key]), key
+    png = np.asarray(Image.open(os.path.join(
+        cfg.val_save_pth, "0", f"bench_eval_{cfg.tile_stride_w}.png")))
+    assert png.shape == (h // 2, w // 2, 3), png.shape
+
+    labels = engine.predict_slide_fcn(plan).labels
+    lab = torch.from_numpy(labels).to(dev)
+    extract_tumor_bed(labels, device=dev)                     # warm-up
+    tb, open_ms = _host_ms(lambda: opening((lab >= 2).to(torch.uint8), 20))
+    tb_host = tb.cpu().numpy()
+    t0 = time.perf_counter()
+    filled = convex_hull_image(tb_host)
+    hull_ms = 1e3 * (time.perf_counter() - t0)
+    _, perim_ms = _host_ms(lambda: dilate(bwperim(torch.tensor(
+        filled, device=dev)), 20).cpu())
+    (tb_filled, tb_perim), tb_ms = _host_ms(
+        lambda: extract_tumor_bed(labels, device=dev))
+    rgb_t, p2m_ms = _host_ms(lambda: pred_to_mask(lab, cfg.num_classes))
+    mask2 = plan_mask_resized(plan, (h, w))
+    t0 = time.perf_counter()
+    rgb = mask2[..., None] * rgb_t.cpu().numpy()
+    rgb[tb_perim > 0] = [255, 255, 255]
+    compose_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    writers.save_color_mask(cfg, "split", "bench_eval", rgb)
+    writer_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gts = _load_gt_artifacts(plan, (h, w))
+    gt_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pm = mask2 * labels
+    _ = (M.masked_pixel_accuracy(labels, gts["gt"]),
+         M.spie_score(labels, gts["gt"]), M.masked_pixel_accuracy(
+             pm, gts["gt"]), M.spie_score(pm, gts["gt"]),
+         M.foreground_iou(pm, gts["gt"]), M.iou(tb_filled, gts["tb_gt"]))
+    metrics_s = time.perf_counter() - t0
+
+    # the card against the CPU on the same labels: exactly equal
+    t0 = time.time()
+    cpu_tb = extract_tumor_bed(labels, device="cpu")
+    assert (cpu_tb[0] == tb_filled).all() and (cpu_tb[1] == tb_perim).all()
+    assert (tb_host == opening(torch.from_numpy(labels >= 2).to(
+        torch.uint8), 20).numpy()).all()
+    for perim in (False, True):
+        g = pred_to_mask(lab, cfg.num_classes, perim=perim).cpu()
+        c = pred_to_mask(torch.from_numpy(labels), cfg.num_classes,
+                         perim=perim)
+        assert torch.equal(g, c), f"pred_to_mask(perim={perim}) differs"
+    cpu_s = time.time() - t0
+    print(f"[6e] eval (predict_wsis, FCN) at {w}x{h}: {wall:.3f} s/slide "
+          f"wall incl. first call, engine {rec['seconds']:.4f} s, peak "
+          f"{peak:.4f} GB, launches {counts}; acc {rec['acc']:.4f} s "
+          f"{rec['s']:.4f} iou_fg {rec['iou_fg']:.4f} iou_tb "
+          f"{rec['iou_tb']:.4f}, tumor bed {int(tb_filled.sum())} px; split "
+          f"on the served labels: extract_tumor_bed {tb_ms:.2f} ms = "
+          f"opening {open_ms:.2f} ms (device) + hull {hull_ms:.2f} ms "
+          f"(host) + perimeter and dilation {perim_ms:.2f} ms (device, with "
+          f"H2D/D2H) + transfers; pred_to_mask {p2m_ms:.2f} ms; color mask "
+          f"composite {compose_s:.4f} s + writer {writer_s:.4f} s; GT "
+          f"loading {gt_s:.4f} s; metrics {metrics_s:.4f} s; GPU == CPU "
+          f"exactly for extract_tumor_bed and pred_to_mask (plain, perim) "
+          f"(CPU side {cpu_s:.2f} s) | {smi}", flush=True)
+    return counts["stem_pool_conv"]
+
+
+SPIE_TOL = 2.0 ** -5             # see phase_patch_evals
+
+
+def phase_patch_evals(dev, tmp: str) -> None:
+    """``python -m wsiseg_tpu_torch eval-spie`` on four patch TIFs (resnet18
+    Unet, random weights, tile 512, bf16) on the card and with ``--device
+    cpu``,
+    then ``predict_reg`` and ``predict_cls`` on one batch of four 512²
+    patches on both. The patch net is the plain model in the compute
+    dtype (no kernel of the port). bf16 limit: each prediction and logit
+    within SPIE_TOL·max(1, |CPU|): four bf16 ulps at magnitude 1
+    (2^-7 each), for two bf16 paths (cuDNN, the CPU's convs) that round
+    each of ~20 layers apart and meet again in one GAP and two dense
+    layers. Classes must be equal where the CPU's top-2 logit margin
+    exceeds twice the limit."""
+    import contextlib
+
+    from wsiseg_tpu_torch.__main__ import main
+    from wsiseg_tpu_torch.config import default_config
+    from wsiseg_tpu_torch.infer import evaluators
+    from wsiseg_tpu_torch.models.ynet import init_ynet
+    from wsiseg_tpu_torch.train.state import save_checkpoint
+
+    rng = np.random.RandomState(60)
+    root = os.path.join(tmp, "spie")
+    patches = os.path.join(root, "patches")
+    os.makedirs(patches)
+    src = level2_image(1024, 1024, seed=61)
+    rows = ["slide,rid,y"]
+    for k in range(4):
+        y, x = rng.randint(0, 400, 2)
+        Image.fromarray(src[y:y + 600, x:x + 560]).save(
+            os.path.join(patches, f"{90 + k // 2}_{1 + k % 2}.tif"))
+        rows.append(f"{90 + k // 2},{1 + k % 2},0.5")
+    csv_pth = os.path.join(root, "labels.csv")
+    with open(csv_pth, "w") as f:
+        f.write("\n".join(rows))
+    # random weights regress to about -0.85 here: the output bias moves
+    # the predictions into [0, 1], where the CSV's clamp does not hide them
+    cfg = default_config()
+    model = init_ynet(cfg, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.regressor.fc[-1].bias += 1.3
+    ckpt = os.path.join(root, "ckpt")
+    save_checkpoint(model, ckpt, cfg.arch_encoder, 0)
+    args = ["eval-spie", "--patch_folder", patches, "--label_csv_path",
+            csv_pth, "--eval_model_pth", ckpt]
+    preds, secs = {}, {}
+    for device, flag in (("cuda", []), ("cpu", ["--device", "cpu"])):
+        d = os.path.join(root, device)
+        os.makedirs(d)
+        reset_counts()
+        t0 = time.time()
+        with contextlib.chdir(d):
+            pth = main(args + flag)
+        secs[device] = time.time() - t0
+        assert sum(read_counts().values()) == 0
+        with open(os.path.join(d, pth)) as f:
+            preds[device] = [(r["slide"], r["rid"], float(r["p"]))
+                             for r in csv.DictReader(f)]
+    g, c = preds["cuda"], preds["cpu"]
+    assert [r[:2] for r in g] == [r[:2] for r in c] and len(g) == 4
+    d_spie = max(abs(a[2] - b[2]) / max(1.0, abs(b[2]))
+                 for a, b in zip(g, c))
+    assert d_spie <= SPIE_TOL, (g, c)
+    assert any(0.0 < r[2] < 1.0 for r in c), f"every prediction clamped: {c}"
+
+    batch = {"image": np.stack([src[y:y + 512, x:x + 512] for y, x in
+                                rng.randint(0, 512, (4, 2))]),
+             "cls_label": np.arange(4) % cfg.num_classes,
+             "reg_label": rng.rand(4).astype(np.float32),
+             "is_cls": np.ones(4, np.float32),
+             "is_reg": np.ones(4, np.float32)}
+    reps, vals = {}, {}
+    for key, device in (("card", dev), ("cpu", "cpu")):
+        net = evaluators.PatchNet(model, cfg, device)
+        vals[key] = (net.regress_tta(batch["image"]).float().cpu(),
+                     net.class_logits(batch["image"]).float().cpu())
+        reps[key] = (
+            evaluators.predict_reg(model, cfg, [batch], device=device,
+                                   log=lambda s: None),
+            evaluators.predict_cls(model, cfg, [batch], device=device,
+                                   log=lambda s: None))
+    (rg, lg), (rc, lc) = vals["card"], vals["cpu"]
+    d_reg = ((rg - rc).abs() / rc.abs().clamp(min=1)).max().item()
+    d_cls = ((lg - lc).abs() / lc.abs().clamp(min=1)).max().item()
+    top2 = lc.topk(2, dim=1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 2 * SPIE_TOL * lc.abs().amax(
+        dim=1).clamp(min=1)
+    same = (lg.argmax(1) == lc.argmax(1))[sure]
+    assert d_reg <= SPIE_TOL and d_cls <= SPIE_TOL and bool(same.all()), \
+        (d_reg, d_cls, lg, lc)
+    print(f"[6f] eval-spie: 4 TIFs, GPU {secs['cuda']:.3f} s / CPU "
+          f"{secs['cpu']:.3f} s, p GPU {[round(r[2], 5) for r in g]} CPU "
+          f"{[round(r[2], 5) for r in c]}, max rel |d| {d_spie:.4g}; one "
+          f"4x512x512 batch: TTA regression max rel |d| {d_reg:.4g}, "
+          f"classifier logits max rel |d| {d_cls:.4g} (limit "
+          f"{SPIE_TOL:.4g}), classes equal on {int(same.sum())}/"
+          f"{int(sure.sum())} decided samples; predict_reg GPU "
+          f"{reps['card'][0]} CPU {reps['cpu'][0]}; predict_cls acc GPU "
+          f"{reps['card'][1]['acc']} CPU {reps['cpu'][1]['acc']}; no port "
+          f"kernel launched (plain model)", flush=True)
 
 
 def _grid_stages(engine, plan) -> dict:
@@ -944,15 +1261,18 @@ def main() -> None:
     prb = phase_probes(dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli(dev, tmp)
+        eval_cli = phase_eval_cli(dev, tmp)
         default = phase_serve(dev, tmp, fold=False, n_slides=3)
         fold = phase_serve(dev, tmp, fold=True, n_slides=2)
         families = phase_families(dev, tmp)
         phase_grid(dev, tmp, smi)
+        eval_full = phase_eval_full(dev, tmp, smi)
+        phase_patch_evals(dev, tmp)
     routes = phase_routes(dev)
     chain = phase_fold_chain(dev)
     head = phase_head(dev)
     launches = {"stem_pool_conv": default["stem_pool_conv"] + families
-                + routes["stem_pool_conv"],
+                + routes["stem_pool_conv"] + eval_cli + eval_full,
                 "stem_conv": fold["stem_conv"] + routes["stem_conv"],
                 "conv9": fold["conv9"] + routes["conv9"],
                 "conv_chain": chain["conv_chain"],

@@ -7,7 +7,8 @@ against its plain PyTorch version, and the engine's kernel path (GPU)
 against its plain path (CPU) on the default and the fold route, and for
 each decoder family on the resnet50 encoder; the grid route (seg and cls)
 GPU against CPU, and the streamed grid against the resident one on the
-card.
+card; the binary morphology, the tumor bed and the color mask on the card
+exactly equal to the CPU.
 They skip where ``torch.cuda.is_available()`` is False. This file imports
 no JAX, so it also runs on a machine without it:
 
@@ -19,10 +20,13 @@ import pytest
 import torch
 
 from wsiseg_tpu_torch.config import default_config
+from wsiseg_tpu_torch.data.bench_slide import level2_image
 from wsiseg_tpu_torch.data.wsi_tiles import plan_slide
-from wsiseg_tpu_torch.infer.engine import DenseInferenceEngine
+from wsiseg_tpu_torch.infer.engine import DenseInferenceEngine, \
+    extract_tumor_bed
 from wsiseg_tpu_torch.models.ynet import init_ynet
-from wsiseg_tpu_torch.ops import conv9, stem
+from wsiseg_tpu_torch.ops import conv9, morphology, stem
+from wsiseg_tpu_torch.ops.threshold import pred_to_mask
 from wsiseg_tpu_torch.slides import SyntheticSlide
 
 MEAN = (0.485, 0.456, 0.406)
@@ -335,3 +339,42 @@ def test_streamed_equals_resident_on_gpu(cuda_device):
     np.testing.assert_array_equal(st.labels, res.labels)
     np.testing.assert_allclose(st.heatmap, res.heatmap, atol=1e-5)
     np.testing.assert_array_equal(st.canvas, res.canvas)
+
+
+@pytest.mark.parametrize("op", ["dilate", "erode", "opening", "closing"])
+@pytest.mark.parametrize("size", [2, 3, 10, 20])
+def test_morphology_gpu_matches_cpu(cuda_device, op, size):
+    m = torch.from_numpy((np.random.RandomState(size).rand(2, 300, 517)
+                          < 0.4).astype(np.uint8))
+    got = getattr(morphology, op)(m.to(cuda_device), size)
+    assert got.device.type == "cuda" and got.dtype == torch.uint8
+    assert torch.equal(got.cpu(), getattr(morphology, op)(m, size))
+
+
+def test_fill_holes_and_bwperim_gpu_match_cpu(cuda_device):
+    m = torch.from_numpy((np.random.RandomState(1).rand(257, 391) < 0.55)
+                         .astype(np.uint8))
+    for max_iters in (None, 5):
+        assert torch.equal(
+            morphology.fill_holes(m.to(cuda_device), max_iters).cpu(),
+            morphology.fill_holes(m, max_iters))
+    assert torch.equal(morphology.bwperim(m.to(cuda_device)).cpu(),
+                       morphology.bwperim(m))
+
+
+def test_tumor_bed_and_color_mask_gpu_match_cpu(cuda_device):
+    """extract_tumor_bed and pred_to_mask (plain and perim) on class labels
+    drawn from a bench-style image: the card equals the CPU exactly."""
+    img = level2_image(768, 1024, seed=3)
+    labels = ((img[..., 1] < 150) * (1 + (img[..., 2] > 160)
+                                     + (img[..., 0] > 130))).astype(np.uint8)
+    got = extract_tumor_bed(labels, device=cuda_device)
+    ref = extract_tumor_bed(labels, device="cpu")
+    assert ref[0].any() and ref[1].any()
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
+    lab = torch.from_numpy(labels)
+    for perim in (False, True):
+        assert torch.equal(pred_to_mask(lab.to(cuda_device), 4,
+                                        perim=perim).cpu(),
+                           pred_to_mask(lab, 4, perim=perim))

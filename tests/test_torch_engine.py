@@ -69,11 +69,6 @@ def test_find_nuclei_matches_jax(slide, mode):
         np.testing.assert_array_equal(got, ref)
 
 
-def test_find_nuclei_fill_mask_not_ported(slide):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        find_nuclei(slide.read_level(2), fill_mask=True)
-
-
 @pytest.mark.parametrize("src,dst", [((192, 256), (48, 64)),
                                      ((191, 257), (48, 65)),
                                      ((37, 53), (100, 211)),

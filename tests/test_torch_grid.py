@@ -147,11 +147,6 @@ def test_threshold_matches_jax(planar):
                                atol=1e-6)
 
 
-def test_pred_to_mask_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        threshold.pred_to_mask(torch.zeros(4, 4, dtype=torch.uint8), 4)
-
-
 @pytest.mark.parametrize("shape,out", [((2, 40, 52, 3), (20, 26)),
                                        ((40, 52, 4), (17, 90)),
                                        ((33, 47), (64, 12))])

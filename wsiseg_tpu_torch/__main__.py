@@ -1,7 +1,9 @@
 """``python -m wsiseg_tpu_torch <command> [flags]`` — CLI dispatcher.
 
-The port serves ``eval-tumorbed`` so far; the JAX package's other
-commands are still to be ported, in the order ROADMAP.md lists.
+The port serves the evaluation commands (``eval``, ``eval-tumorbed``,
+``eval-spie``); the JAX package's other commands are still to be ported,
+in the order ROADMAP.md lists. Slide conversion runs as ``python -m
+wsiseg_tpu_torch.cli.convert_slide``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -10,8 +12,12 @@ import importlib
 import sys
 
 COMMANDS = {
+    "eval": ("wsiseg_tpu_torch.cli.eval",
+             "full-WSI segmentation eval (eval.py)"),
     "eval-tumorbed": ("wsiseg_tpu_torch.cli.eval_tumorbed",
                       "tumor-bed heatmap generation (eval_tumorbed.py)"),
+    "eval-spie": ("wsiseg_tpu_torch.cli.eval_spie",
+                  "BreastPathQ submission writer (eval_spie.py)"),
 }
 
 

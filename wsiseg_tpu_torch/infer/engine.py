@@ -58,6 +58,8 @@ from wsiseg_tpu_torch.models.infer_fast import NATIVE_DECODERS, check_fold, \
     prepare_fast, segment_from_image
 from wsiseg_tpu_torch.models.ynet import compute_copy
 from wsiseg_tpu_torch.ops.color import normalize
+from wsiseg_tpu_torch.ops.hull import convex_hull_image
+from wsiseg_tpu_torch.ops.morphology import bwperim, dilate, opening
 from wsiseg_tpu_torch.ops.stitch import gather_tiles, \
     scatter_add_scalar_tiles, scatter_add_tiles
 from wsiseg_tpu_torch.ops.threshold import threshold_probs_planar
@@ -853,3 +855,21 @@ class DenseInferenceEngine:
         dt = (time.time() - t0) / (iters * n_per_iter)
         return {"patches_per_sec": n / dt if dt > 0 else 0.0,
                 "sec_per_slide": dt}
+
+
+@torch.no_grad()
+def extract_tumor_bed(labels: np.ndarray, open_size: int = 20,
+                      dilate_size: int = 20, device="cuda"):
+    """Tumor bed from class labels (JAX ``extract_tumor_bed``, reference
+    utils/eval.py:89-96): classes ≥ 2, a 20×20 opening on ``device``, the
+    filled convex hull on the host, then its perimeter dilated by 20×20
+    on ``device``.
+
+    Returns (tb_filled (H, W) uint8, tb_perimeter (H, W) uint8), numpy."""
+    device = resolve_device(device)
+    tb = torch.from_numpy(np.ascontiguousarray(labels)).to(device) >= 2
+    tb = opening(tb.to(torch.uint8), open_size)
+    tb_filled = convex_hull_image(tb.cpu().numpy())
+    perim = dilate(bwperim(torch.tensor(tb_filled, device=device)),
+                   dilate_size)
+    return tb_filled, perim.cpu().numpy()

@@ -13,7 +13,8 @@ and Linknet (32 → nc), a 1×1 conv for FPN (128 → nc) and PSPNet
 :meth:`YNet.segment` is the plain eager forward — the CPU oracle the fast
 path (:mod:`.infer_fast`) is held against. :meth:`YNet.encode` and
 :meth:`YNet.classify` are the encoder-only entries of the grid and cls
-modes (reference utils/eval.py:196-200). :func:`compute_copy` gives the
+modes (reference utils/eval.py:196-200), :meth:`YNet.regress` the patch
+regressor's (the TTA evaluators). :func:`compute_copy` gives the
 same model in a compute dtype for tile batches, rounded where the flax
 modules applied in that dtype round.
 """
@@ -85,6 +86,10 @@ class YNet(nn.Module):
     def classify(self, x: torch.Tensor) -> torch.Tensor:
         """encoder → classifier: (B, num_classes) float32 logits."""
         return self.classifier(self.encoder(x)[0])
+
+    def regress(self, x: torch.Tensor) -> torch.Tensor:
+        """encoder → regressor: (B, num_reg_outputs) float32."""
+        return self.regressor(self.encoder(x)[0])
 
 
 class FlaxBatchNorm(nn.Module):

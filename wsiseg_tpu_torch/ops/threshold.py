@@ -1,17 +1,18 @@
 """Per-class probability gating — counterpart of
 ``wsiseg_tpu/ops/threshold.py`` (``threshold_probs``,
-``threshold_probs_planar``), channels-last logits ``(H, W, C)`` in, the
-same f32 arithmetic (max-shifted exp over the class axis, floors, argmax).
-
-``pred_to_mask`` draws class perimeters with ``ops/morphology``, which is
-not ported yet, and raises.
+``threshold_probs_planar``, ``pred_to_mask``), channels-last logits
+``(H, W, C)`` in, the same f32 arithmetic (max-shifted exp over the class
+axis, floors, argmax); ``pred_to_mask`` draws class perimeters with
+:mod:`wsiseg_tpu_torch.ops.morphology`.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
+
+from wsiseg_tpu_torch.ops.morphology import bwperim, dilate
 
 
 def _gate(x: torch.Tensor, class_probs: Sequence[float],
@@ -41,8 +42,25 @@ def threshold_probs_planar(logits: torch.Tensor,
     return _gate(logits.permute(2, 0, 1).float(), class_probs, 0)
 
 
-def pred_to_mask(labels, num_classes: int, wsi=None, perim: bool = False):
-    """Class labels rendered onto an RGB canvas (JAX ``pred_to_mask``)."""
-    raise NotImplementedError(
-        "pred_to_mask needs ops/morphology, not ported yet: ROADMAP.md, "
-        "queue 1, 'the other eval CLIs'")
+def pred_to_mask(labels: torch.Tensor, num_classes: int,
+                 wsi: Optional[torch.Tensor] = None,
+                 perim: bool = False) -> torch.Tensor:
+    """Class labels rendered onto an RGB canvas, on the labels' device.
+    Class c (1-based among non-background) lights channel c-1, for c in
+    1 … min(num_classes, 4)-1; later classes overwrite earlier ones.
+
+    labels: (H, W) integer classes (0 = background); wsi: optional
+    (H, W, 3) backdrop (zeros when None); perim: draw each class's
+    perimeter dilated by a 10×10 element instead of its region.
+    Returns (H, W, 3) uint8."""
+    h, w = labels.shape
+    canvas = (torch.zeros((h, w, 3), dtype=torch.uint8, device=labels.device)
+              if wsi is None else wsi.to(labels.device, torch.uint8).clone())
+    for cj in range(1, min(num_classes, 4)):
+        sel = labels == cj
+        if perim:
+            sel = dilate(bwperim(sel), 10)
+        color = torch.zeros(3, dtype=torch.uint8, device=labels.device)
+        color[cj - 1] = 255
+        canvas = torch.where(sel[..., None], color, canvas)
+    return canvas

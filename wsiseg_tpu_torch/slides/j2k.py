@@ -13,7 +13,7 @@ utils/eval.py:63). This module closes that capability gap:
   here automatically when the first IFD sniffs as 33003/33005.
 * :func:`convert_to_wsiraw` — one-time ingest to the ``.wsiraw`` mmap
   pyramid for the fast native path (CLI: ``python -m
-  wsiseg_tpu.cli.convert_slide in.svs out.wsiraw``).
+  wsiseg_tpu_torch.cli.convert_slide in.svs out.wsiraw``).
 * :func:`write_j2k_tiled_tiff` — synthetic Aperio-J2K-layout writer
   (lossless codestreams) for hermetic tests.
 

@@ -24,7 +24,7 @@ protocol (level-0 coordinates, RGB output, white out-of-bounds) plus the
 batched ``read_tiles`` API the banded
 :func:`wsiseg_tpu_torch.slides.j2k.convert_to_wsiraw` ingest uses, so
 production pipelines convert once to ``.wsiraw`` for the C++ fast path
-(``python -m wsiseg_tpu.cli.convert_slide in.ndpi out.wsiraw``).
+(``python -m wsiseg_tpu_torch.cli.convert_slide in.ndpi out.wsiraw``).
 
 Known bounds (documented, loud): multi-file formats (MIRAX ``.mrxs``,
 DICOM WSI) are rejected with an explanatory error in ``open_slide``;
