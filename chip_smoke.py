@@ -43,6 +43,11 @@ just before and read just after:
   keep_probs/keep_canvas on the fused route, plain and with
   ``fcn_fold``; on the card streamed equals resident, banded equals
   chunked, and an oversize slide takes the banded route;
+- training (phase ``[6g]``), which launches none of the kernels: a
+  float64 hybrid step GPU against CPU, the full-width step's time,
+  patches/s and peak memory at 512², batch 30, and ``python -m
+  wsiseg_tpu_torch train`` host-fed and with ``--device_cache``, each
+  resumed with ``--continue_train``;
 - ``decode_fold(use_chain=True)`` at bench geometry (the chain kernel);
 - ``conv3x3_small`` at its documented head shape (the kernel has no
   caller in the serving path; its phase is its path).
@@ -1039,6 +1044,160 @@ def phase_patch_evals(dev, tmp: str) -> None:
           f"kernel launched (plain model)", flush=True)
 
 
+TRAIN_REL = 1e-9                 # × max(1, |CPU|), float64 both sides
+TRAIN_HW = 512                   # the trainers' tile (Config defaults)
+TRAIN_BATCH = 30
+
+
+def _train_batch(rng, b: int, hw: int, nc: int) -> dict:
+    """A hybrid batch of u8 images and one task per row (cls, seg, reg,
+    seg, ...) as numpy, the PatchDataset's form."""
+    task = np.arange(b) % 4
+    return {"image": rng.randint(0, 256, (b, hw, hw, 3)).astype(np.uint8),
+            "seg_label": rng.randint(0, nc, (b, hw, hw)).astype(np.int32),
+            "cls_label": np.where(task == 0, rng.randint(0, nc, b),
+                                  -1).astype(np.int32),
+            "reg_label": np.where(task == 2, rng.rand(b), 0).astype(
+                np.float32),
+            "is_cls": (task == 0).astype(np.float32),
+            "is_reg": (task == 2).astype(np.float32),
+            "is_seg": (task % 2 == 1).astype(np.float32)}
+
+
+def _train_store(root: str, n: int, hw: int, nc: int) -> str:
+    """A gt.npy store of n patches at hw², cls, seg (mask PNG) and reg
+    rows in turn."""
+    from wsiseg_tpu_torch.data import metadata as md
+    rng = np.random.RandomState(70)
+    src = level2_image(1024, 1024, seed=71)
+    os.makedirs(root)
+    store = {}
+    for i in range(n):
+        y, x = rng.randint(0, 1024 - hw, 2)
+        ipth = os.path.join(root, f"p{i}.png")
+        Image.fromarray(src[y:y + hw, x:x + hw]).save(ipth)
+        if i % 3 == 0:
+            label = int(rng.randint(0, nc))
+        elif i % 3 == 1:
+            label = os.path.join(root, f"m{i}.png")
+            Image.fromarray(rng.randint(0, nc, (hw // 8, hw // 8)).astype(
+                np.uint8).repeat(8, 0).repeat(8, 1)).save(label)
+        else:
+            label = float(rng.rand())
+        md.add_patch(store, "synthetic", i, ipth, label)
+    md.save_store(store, root)
+    return root
+
+
+def phase_train(dev, tmp: str, smi: str) -> dict:
+    """Training, which launches none of the port's kernels (JAX's reaches
+    no Pallas kernel either; K1/K2 fold inference BatchNorm into the conv,
+    which train mode must not do): every launch count is 0 before the
+    phase and still 0 after it.
+
+    1. One float64 hybrid step (sgd) of the full-depth resnet18 Unet at
+       64², batch 4, from the same seeded weights and batch, on the card
+       and on the CPU: the loss and every parameter and running statistic
+       within TRAIN_REL·max(1, |CPU|).
+    2. Full width: resnet18 Unet at 512², batch 30, bf16 autocast, adam,
+       on a batch resident on the card: 3 warm-up steps, 10 timed
+       (synchronized wall time); ms per step, patches/s, peak memory.
+    3. ``python -m wsiseg_tpu_torch train`` on a 60-patch 512² store for
+       2 epochs with checkpoints, resumed for a third with
+       ``--continue_train``; again with ``--device_cache``. Each epoch's
+       patches/s (host loading included)."""
+    from wsiseg_tpu_torch.__main__ import main
+    from wsiseg_tpu_torch.cli.common import make_preprocess, setup_ynet
+    from wsiseg_tpu_torch.config import default_config
+    from wsiseg_tpu_torch.models.ynet import init_ynet
+    from wsiseg_tpu_torch.optim import build_optimizer
+    from wsiseg_tpu_torch.train.state import TrainState
+    from wsiseg_tpu_torch.train.steps import make_hybrid_train_step
+
+    reset_counts()
+    t_phase = time.time()
+    # 1. GPU against CPU in float64
+    cfg64 = default_config(tile_w=64, tile_h=64, compute_dtype="float64",
+                           param_dtype="float64", optim="sgd", lr=1e-2)
+    host = _train_batch(np.random.RandomState(72), 4, 64, cfg64.num_classes)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        net = init_ynet(cfg64, torch.Generator().manual_seed(3)).double()
+        net = net.to(d)
+        if d.type == "cuda":
+            net = net.to(memory_format=torch.channels_last)
+        state = TrainState(net, build_optimizer(cfg64, net.parameters()))
+        b = make_preprocess(cfg64, train=False)(
+            {k: torch.from_numpy(v).to(d) for k, v in host.items()})
+        m = make_hybrid_train_step(net, cfg64)(state, b)
+        res.append(({k: float(v) for k, v in m.items()},
+                    {k: v.detach().cpu() for k, v in
+                     net.state_dict().items()}))
+    (mg, sg), (mc, sc) = res
+    d64 = max(abs(mg[k] - mc[k]) / max(1.0, abs(mc[k])) for k in mc)
+    for k, ref in sc.items():
+        if ref.is_floating_point():
+            d64 = max(d64, ((sg[k] - ref).abs() / ref.abs().clamp(min=1.0))
+                      .max().item())
+    assert d64 <= TRAIN_REL, f"f64 train step GPU vs CPU: {d64}"
+
+    # 2. full width, resident batch
+    cfg = default_config(model_save_pth=os.path.join(tmp, "unused"))
+    state, _ = setup_ynet(cfg, dev)
+    step = make_hybrid_train_step(state.model, cfg)
+    batch = make_preprocess(cfg)(
+        {k: torch.from_numpy(v).to(dev) for k, v in _train_batch(
+            np.random.RandomState(73), TRAIN_BATCH, TRAIN_HW,
+            cfg.num_classes).items()},
+        torch.Generator(device=dev).manual_seed(0))
+    losses = [step(state, batch)["loss"] for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    for _ in range(10):
+        losses.append(step(state, batch)["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) / 10 * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    vals = torch.stack(losses).float().cpu()
+    assert torch.isfinite(vals).all(), vals
+    del state, step, batch
+
+    # 3. the CLI, host-fed and device-cached, each resumed
+    store = _train_store(os.path.join(tmp, "train_store"), 60, TRAIN_HW,
+                         cfg.num_classes)
+    rates = {}
+    for mode, extra in (("host", []), ("cache", ["--device_cache", "true"])):
+        ck = os.path.join(tmp, f"train_ck_{mode}")
+        args = ["train", "--train_image_pth", store, "--model_save_pth", ck,
+                "--train_model_pth", os.path.join(ck, "*"),
+                "--raw_val_pth", "", "--save_models", "1"] + extra
+        first = main(args + ["--num_epoch", "2"])
+        again = main(args + ["--num_epoch", "3", "--continue_train", "true"])
+        hist = first.history + again.history
+        assert [r["epoch"] for r in hist] == [1, 2, 3], hist
+        assert again.state.step == 3 * first.state.step // 2
+        assert all(np.isfinite(r["loss"]) for r in hist), hist
+        assert os.path.exists(os.path.join(ck, "model_resnet18_3.pt"))
+        rates[mode] = [round(r["patches_per_sec"], 3) for r in hist]
+    counts = read_counts()
+    assert sum(counts.values()) == 0, f"training launched kernels: {counts}"
+    out = {"step_ms": step_ms, "patches_per_sec": TRAIN_BATCH / step_ms * 1e3,
+           "peak_gb": peak_gb, "f64_rel": d64, "epoch_rates": rates}
+    print(f"[6g] train: f64 hybrid step (resnet18 Unet 64x64, batch 4, sgd)"
+          f" GPU vs CPU max rel |d| {d64:.4g} (limit {TRAIN_REL:g}); full "
+          f"width (resnet18 Unet {TRAIN_HW}x{TRAIN_HW}, batch "
+          f"{TRAIN_BATCH}, bf16 autocast, adam, resident batch): "
+          f"{step_ms:.3f} ms/step, {out['patches_per_sec']:.1f} patches/s, "
+          f"peak {peak_gb:.3f} GB, losses "
+          f"{[round(float(v), 4) for v in vals]};"
+          f" CLI train 60x{TRAIN_HW}^2 patches, 2 epochs + resume, epoch "
+          f"patches/s host-fed {rates['host']}, --device_cache "
+          f"{rates['cache']}; 0 kernel launches; {time.time() - t_phase:.1f}"
+          f" s | {smi}", flush=True)
+    return out
+
+
 def _grid_stages(engine, plan) -> dict:
     """CUDA-event ms of the grid route's stages on its first full tile
     batch: gather, forward, the sequential adds into the canvas, and the
@@ -1268,6 +1427,7 @@ def main() -> None:
         phase_grid(dev, tmp, smi)
         eval_full = phase_eval_full(dev, tmp, smi)
         phase_patch_evals(dev, tmp)
+        phase_train(dev, tmp, smi)
     routes = phase_routes(dev)
     chain = phase_fold_chain(dev)
     head = phase_head(dev)

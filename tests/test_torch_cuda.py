@@ -8,7 +8,9 @@ against its plain path (CPU) on the default and the fold route, and for
 each decoder family on the resnet50 encoder; the grid route (seg and cls)
 GPU against CPU, and the streamed grid against the resident one on the
 card; the binary morphology, the tumor bed and the color mask on the card
-exactly equal to the CPU.
+exactly equal to the CPU; a float64 training step on the card against
+the CPU (no kernel of the port launched) and the ``train`` CLI on the
+card.
 They skip where ``torch.cuda.is_available()`` is False. This file imports
 no JAX, so it also runs on a machine without it:
 
@@ -378,3 +380,102 @@ def test_tumor_bed_and_color_mask_gpu_match_cpu(cuda_device):
         assert torch.equal(pred_to_mask(lab.to(cuda_device), 4,
                                         perim=perim).cpu(),
                            pred_to_mask(lab, 4, perim=perim))
+
+
+def _train_step(device, cfg, host, seed=3):
+    """One hybrid step of a seeded float64 Y-Net on ``device``: (metrics,
+    state_dict on the CPU)."""
+    from wsiseg_tpu_torch.cli.common import make_preprocess
+    from wsiseg_tpu_torch.optim import build_optimizer
+    from wsiseg_tpu_torch.train.state import TrainState
+    from wsiseg_tpu_torch.train.steps import make_hybrid_train_step
+    net = init_ynet(cfg, torch.Generator().manual_seed(seed)).double()
+    net = net.to(device)
+    if device.type == "cuda":
+        net = net.to(memory_format=torch.channels_last)
+    state = TrainState(net, build_optimizer(cfg, net.parameters()))
+    batch = make_preprocess(cfg, train=False)(
+        {k: torch.from_numpy(v).to(device) for k, v in host.items()})
+    m = make_hybrid_train_step(net, cfg)(state, batch)
+    return ({k: float(v) for k, v in m.items()},
+            {k: v.detach().cpu() for k, v in net.state_dict().items()})
+
+
+def test_train_step_gpu_matches_cpu_f64(cuda_device):
+    """A float64 hybrid sgd step (resnet18 Unet, 32², batch 4, cls/seg/reg
+    rows) on the card equals the CPU's within 1e-9·max(1, |CPU|), the
+    running statistics included; no kernel of the port launches. (Not
+    adam: its first update is about lr·g/|g|, which turns rounding in a
+    near-zero gradient into an O(lr) difference.)"""
+    cfg = default_config(tile_w=32, tile_h=32, compute_dtype="float64",
+                         param_dtype="float64", optim="sgd", lr=1e-2)
+    r = np.random.RandomState(7)
+    host = {"image": r.randint(0, 256, (4, 32, 32, 3)).astype(np.uint8),
+            "seg_label": r.randint(0, 4, (4, 32, 32)).astype(np.int32),
+            "cls_label": np.array([1, -1, -1, -1], np.int32),
+            "reg_label": np.array([0, 0, 0.4, 0], np.float32),
+            "is_cls": np.array([1, 0, 0, 0], np.float32),
+            "is_reg": np.array([0, 0, 1, 0], np.float32),
+            "is_seg": np.array([0, 1, 0, 1], np.float32)}
+    before = stem.LAUNCHES + sum(conv9.LAUNCHES.values())
+    mg, sg = _train_step(cuda_device, cfg, host)
+    assert stem.LAUNCHES + sum(conv9.LAUNCHES.values()) == before
+    mc, sc = _train_step(torch.device("cpu"), cfg, host)
+    for k in mc:
+        assert abs(mg[k] - mc[k]) <= 1e-9 * max(1.0, abs(mc[k])), k
+    for k, ref in sc.items():
+        if ref.is_floating_point():
+            d = ((sg[k] - ref).abs() / ref.abs().clamp(min=1.0)).max()
+            assert d.item() <= 1e-9, (k, d.item())
+
+
+@pytest.mark.parametrize("optim", ["adam", "sgd", "adabound"])
+def test_optimizer_gpu_matches_cpu(cuda_device, optim):
+    """The optimizers on the card (adam: torch's fused kernel) against the
+    CPU over 5 float64 steps with weight decay, on random parameters and
+    grads, rtol 1e-12."""
+    from wsiseg_tpu_torch.optim import build_optimizer
+    cfg = default_config(optim=optim, lr=3e-3, weight_decay=1e-2)
+    r = np.random.RandomState(0)
+    init = [r.randn(64, 32), r.randn(17)]
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        ps = [torch.tensor(v, device=dev, requires_grad=True) for v in init]
+        opt = build_optimizer(cfg, ps)
+        g = np.random.RandomState(1)
+        for _ in range(5):
+            for p in ps:
+                p.grad = torch.from_numpy(g.randn(*p.shape)).to(dev)
+            opt.step()
+        out.append([p.detach().cpu() for p in ps])
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-15)
+
+
+def test_train_cli_on_gpu(tmp_path):
+    """``train`` on the card (its default device) for 2 epochs on a 32²
+    store, host-fed and with ``--device_cache``: finite losses and a
+    checkpoint each epoch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    from PIL import Image
+
+    from wsiseg_tpu_torch.__main__ import main
+    from wsiseg_tpu_torch.data import metadata as md
+    r = np.random.RandomState(0)
+    store = {}
+    for i in range(16):
+        pth = str(tmp_path / f"p{i}.png")
+        Image.fromarray(r.randint(0, 256, (32, 32, 3)).astype(
+            np.uint8)).save(pth)
+        md.add_patch(store, "s", i, pth, [1, 0.5][i % 2])
+    md.save_store(store, str(tmp_path))
+    for extra in ([], ["--device_cache", "true"]):
+        ck = tmp_path / f"ck{len(extra)}"
+        trainer = main(["train", "--train_image_pth", str(tmp_path),
+                        "--tile_w", "32", "--tile_h", "32", "--batch_size",
+                        "8", "--num_epoch", "2", "--model_save_pth",
+                        str(ck), "--raw_val_pth", ""] + extra)
+        assert all(np.isfinite(h["loss"]) for h in trainer.history)
+        assert (ck / "model_resnet18_2.pt").exists()

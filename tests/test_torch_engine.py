@@ -223,7 +223,7 @@ def test_cli_eval_tumorbed_writes_heatmap(tmp_path):
 def test_unported_command_points_at_roadmap():
     from wsiseg_tpu_torch.__main__ import main
     with pytest.raises(SystemExit, match="ROADMAP"):
-        main(["train"])
+        main(["train-hr"])
 
 
 def test_writers_match_jax(cfg, tmp_path):
@@ -275,17 +275,14 @@ def test_cli_defaults_to_cuda(tmp_path):
               ""])
 
 
-@pytest.mark.parametrize("what", ["sharded", "pretrained_pth"])
+@pytest.mark.parametrize("what", ["sharded"])
 def test_unported_routes_raise(cfg, what):
     """What the port still lacks raises and names its ROADMAP item: the
-    sharded routes (Multi-GPU) and pretrained grafting (training)."""
+    sharded routes (Multi-GPU). (Pretrained grafting is ported:
+    tests/test_torch_train_data.py.)"""
     from wsiseg_tpu_torch.cli.eval_tumorbed import main
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "sharded":
-            main(["--sharded", "--raw_val_pth", "/nonexistent"])
-        else:
-            from wsiseg_tpu_torch.cli.common import restore_for_eval
-            restore_for_eval(cfg.replace(pretrained_pth="/nonexistent.pth"))
+        main(["--sharded", "--raw_val_pth", "/nonexistent"])
 
 
 def test_port_imports_no_jax():

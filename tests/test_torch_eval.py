@@ -469,8 +469,20 @@ def test_normalize_batch_images_matches_jax(cfg):
                                  cfg.replace(compute_dtype="float64"))
     assert f64.dtype == torch.float64
     np.testing.assert_allclose(f64.numpy(), ref, rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="training"):
-        normalize_batch_images(torch.from_numpy(img), cfg, train=True)
+    # the train path: the color jitter, its factors from the generator
+    from wsiseg_tpu_torch.ops.color import apply_color_jitter, \
+        draw_jitter_factors, normalize
+    x = torch.from_numpy(img)
+    jit = normalize_batch_images(x, cfg, torch.Generator().manual_seed(4),
+                                 train=True)
+    fac = draw_jitter_factors(2, torch.Generator().manual_seed(4))
+    want = normalize(apply_color_jitter(x.float() / 255.0, fac),
+                     cfg.dataset_mean, cfg.dataset_std)
+    torch.testing.assert_close(jit, want, rtol=0, atol=0)
+    assert (jit - got).abs().max() > 0.01
+    # without a generator (JAX: without an rng) train adds no jitter
+    torch.testing.assert_close(normalize_batch_images(x, cfg, train=True),
+                               got, rtol=0, atol=0)
 
 
 # ---- CLIs ----

@@ -1,9 +1,12 @@
 """``python -m wsiseg_tpu_torch <command> [flags]`` — CLI dispatcher.
 
 The port serves the evaluation commands (``eval``, ``eval-tumorbed``,
-``eval-spie``); the JAX package's other commands are still to be ported,
-in the order ROADMAP.md lists. Slide conversion runs as ``python -m
-wsiseg_tpu_torch.cli.convert_slide``, as in the JAX package.
+``eval-spie``) and the trainers (``train``, ``train-cellularity``,
+``train-p``, ``train-ssr``); the JAX package's other commands
+(``train-hr``, ``slic``, ``scannet``, ``preprocess`` and the paper tools)
+are still to be ported, in the order ROADMAP.md lists. Slide conversion
+runs as ``python -m wsiseg_tpu_torch.cli.convert_slide``, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -18,6 +21,15 @@ COMMANDS = {
                       "tumor-bed heatmap generation (eval_tumorbed.py)"),
     "eval-spie": ("wsiseg_tpu_torch.cli.eval_spie",
                   "BreastPathQ submission writer (eval_spie.py)"),
+    "train": ("wsiseg_tpu_torch.cli.train",
+              "hybrid cls+reg+seg trainer (train.py)"),
+    "train-cellularity": ("wsiseg_tpu_torch.cli.train_cellularity",
+                          "3-head cls+reg+seg trainer "
+                          "(train_cellularity.py)"),
+    "train-p": ("wsiseg_tpu_torch.cli.train_p",
+                "patch classification trainer (train_p.py)"),
+    "train-ssr": ("wsiseg_tpu_torch.cli.train_ssr",
+                  "same-sized-region segmentation trainer (train_ssr.py)"),
 }
 
 

@@ -1,27 +1,61 @@
-"""Shared CLI plumbing — counterpart of ``wsiseg_tpu/cli/common.py``
-(``restore_for_eval`` for ``.pt`` checkpoints and ``parse_eval_flags``)."""
+"""Shared CLI plumbing — counterpart of ``wsiseg_tpu/cli/common.py``:
+the Y-Net with its optimizer and resume (``setup_ynet``), the eval
+restore, the device-side batch preprocessing, and the eval and train
+flag pre-parsers (the JAX package's flags plus ``--device``)."""
 
 from __future__ import annotations
 
 import argparse
+from typing import Callable, Dict, Tuple
 
 import torch
 
 from wsiseg_tpu_torch.config import Config
-from wsiseg_tpu_torch.models.ynet import init_ynet
-from wsiseg_tpu_torch.train.state import latest_checkpoint, \
-    restore_checkpoint
+from wsiseg_tpu_torch.data.patches import normalize_batch_images
+from wsiseg_tpu_torch.infer.engine import MULTI_GPU_ITEM, resolve_device
+from wsiseg_tpu_torch.models.torch_import import apply_pretrained
+from wsiseg_tpu_torch.models.ynet import YNet, init_ynet
+from wsiseg_tpu_torch.optim import build_optimizer
+from wsiseg_tpu_torch.train.state import (TrainState, latest_checkpoint,
+                                          restore_checkpoint,
+                                          restore_train_state)
+
+
+def _init(cfg: Config) -> YNet:
+    """Fresh weights from ``cfg.seed``, with ``cfg.pretrained_pth``
+    grafted over them when set."""
+    model = init_ynet(cfg, torch.Generator().manual_seed(cfg.seed))
+    if cfg.pretrained_pth:
+        apply_pretrained(model, cfg.pretrained_pth)
+        print(f"grafted pretrained weights from {cfg.pretrained_pth}")
+    return model
+
+
+def setup_ynet(cfg: Config, device="cuda") -> Tuple[TrainState, int]:
+    """The Y-Net on ``device`` in ``cfg.param_dtype`` (``channels_last``
+    on a CUDA device), its optimizer, and the start epoch, resumed from
+    the latest ``cfg.train_model_pth`` checkpoint when
+    ``cfg.continue_train`` (restored epoch + 1, reference
+    utils/networks.py:4-12). Returns (state, start_epoch)."""
+    device = resolve_device(device)
+    model = _init(cfg).to(device, getattr(torch, cfg.param_dtype))
+    if device.type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    state = TrainState(model, build_optimizer(cfg, model.parameters()))
+    start_epoch = cfg.start_epoch
+    if cfg.continue_train:
+        pth = latest_checkpoint(cfg.train_model_pth)
+        if pth:
+            start_epoch = restore_train_state(pth, state)
+            print(f"resumed from {pth} (epoch {start_epoch})")
+    return state, start_epoch
 
 
 def restore_for_eval(cfg: Config):
-    """Y-Net with the latest ``cfg.eval_model_pth`` checkpoint, or fresh
-    weights from ``cfg.seed`` (with a warning) when there is none.
+    """Y-Net with the latest ``cfg.eval_model_pth`` checkpoint, or the
+    fresh (and grafted) weights with a warning when there is none.
     Returns (model, epoch) like the JAX function."""
-    if cfg.pretrained_pth:
-        raise NotImplementedError(
-            "pretrained_pth grafting is not ported yet: ROADMAP.md, "
-            "queue 1, 'training'")
-    model = init_ynet(cfg, torch.Generator().manual_seed(cfg.seed))
+    model = _init(cfg)
     pth = latest_checkpoint(cfg.eval_model_pth)
     if pth:
         model, epoch = restore_checkpoint(pth, model)
@@ -31,6 +65,37 @@ def restore_for_eval(cfg: Config):
         print(f"WARNING: no checkpoint at {cfg.eval_model_pth}; "
               "using fresh weights")
     return model, epoch - 1
+
+
+def make_preprocess(cfg: Config, train: bool = True) -> Callable:
+    """``fn(batch, generator)``: the batch's u8 images → normalized float
+    on their device, with the train jitter drawn from ``generator`` when
+    ``train``."""
+
+    def preprocess(batch: Dict, generator=None) -> Dict:
+        out = dict(batch)
+        out["image"] = normalize_batch_images(batch["image"], cfg,
+                                              generator, train=train)
+        return out
+
+    return preprocess
+
+
+def check_single_device(cfg: Config) -> None:
+    """``--mesh`` asks for training over several devices, which waits for
+    the Multi-GPU item (JAX ``make_train_mesh``)."""
+    if cfg.mesh and cfg.mesh not in ("none", "0", "1"):
+        raise NotImplementedError(f"--mesh {cfg.mesh}: {MULTI_GPU_ITEM}")
+
+
+def parse_train_flags(argv):
+    """``--device`` for the trainers (default cuda; raises when no CUDA
+    device is present). Returns (namespace, remaining argv)."""
+    p = argparse.ArgumentParser(add_help=False)
+    p.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
+                   help="where the model trains (default cuda; raises when "
+                        "no CUDA device is present)")
+    return p.parse_known_args(argv)
 
 
 def parse_eval_flags(argv):

@@ -1,6 +1,7 @@
 """Host→device prefetch — counterpart of ``prefetch_to_device`` in
-``wsiseg_tpu/data/pipeline.py``. The rest of that module (batchers for
-training) waits for the training port (ROADMAP.md, queue 1, "Training").
+``wsiseg_tpu/data/pipeline.py``, which feeds the engine's streamed route
+and the trainers. That module's ``ThreadedBatcher`` has no caller on
+either path and is not ported.
 
 A worker thread pulls host batches, copies their numpy arrays into pinned
 buffers and from there to the device on a side CUDA stream, and records

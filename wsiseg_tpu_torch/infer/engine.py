@@ -146,6 +146,17 @@ class DenseInferenceEngine:
         self._h2d_stream = None
         self._h2d_lock = threading.Lock()
 
+    def refresh_weights(self) -> None:
+        """Take the model's current weights (after training steps changed
+        them): the fast path's prepared weights, the fold's with them, are
+        prepared again and the tile forward's compute copy is dropped, to
+        be rebuilt at its next use. The model is put in eval mode. (JAX
+        assigns ``engine.variables``.)"""
+        self.model.eval()
+        self.fast = prepare_fast(self.model, self.cfg.dataset_mean,
+                                 self.cfg.dataset_std, self.dtype)
+        self._tile_net = None
+
     # ---- geometry ----
 
     @staticmethod

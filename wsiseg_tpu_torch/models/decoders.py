@@ -24,8 +24,8 @@ Resizes follow ``jax.image.resize``, not smp:
   there (smp's ``UpsamplingBilinear2d`` is ``align_corners=True``: a
   different function).
 
-The train-only ``_S2dLinknetTailBlock`` waits for the training port
-(ROADMAP.md, queue 1, "Training").
+The port trains Linknet through this decoder: the JAX package's train-only
+``_S2dLinknetTailBlock`` is not ported (ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -35,6 +35,9 @@ from typing import List, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from wsiseg_tpu_torch.models.heads import at_least_f32
+from wsiseg_tpu_torch.models.resnet import BatchNorm2d
 
 PSP_BINS = (1, 2, 3, 6)
 FPN_UPSAMPLES = {5: 3, 4: 2, 3: 1, 2: 0}   # nearest 2× steps per seg block
@@ -58,16 +61,17 @@ def resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return x
 
 
-def linear_weights(n_in: int, n_out: int,
-                   device=None) -> torch.Tensor:
-    """(n_out, n_in) f32 weights of JAX's antialiased linear resize along
-    one axis (``jax._src.image.scale.compute_weight_mat``, triangle
-    kernel, no translation)."""
-    inv_scale = torch.tensor(1.0 / (n_out / n_in), dtype=torch.float32)
+def linear_weights(n_in: int, n_out: int, device=None,
+                   dtype=torch.float32) -> torch.Tensor:
+    """(n_out, n_in) weights of JAX's antialiased linear resize along one
+    axis (``jax._src.image.scale.compute_weight_mat``, triangle kernel, no
+    translation), computed in ``dtype``: JAX's default float, f32, or f64
+    with x64 on."""
+    inv_scale = torch.tensor(1.0 / (n_out / n_in), dtype=dtype)
     kernel_scale = torch.clamp(inv_scale, min=1.0)
-    sample = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv_scale \
+    sample = (torch.arange(n_out, dtype=dtype) + 0.5) * inv_scale \
         - 0.5
-    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]
+    x = (sample[None, :] - torch.arange(n_in, dtype=dtype)[:, None]
          ).abs() / kernel_scale
     wts = torch.clamp(1.0 - x, min=0.0)
     total = wts.sum(dim=0, keepdim=True)
@@ -92,21 +96,22 @@ def resize_linear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     if h >= hh and w >= ww:
         return F.interpolate(x, size=(h, w), mode="bilinear",
                              align_corners=False)
+    wd = torch.float64 if x.dtype == torch.float64 else torch.float32
     if h != hh:
         x = torch.einsum("oh,bchw->bcow",
-                         linear_weights(hh, h, x.device).to(x.dtype), x)
+                         linear_weights(hh, h, x.device, wd).to(x.dtype), x)
     if w != ww:
         x = torch.einsum("ow,bchw->bcho",
-                         linear_weights(ww, w, x.device).to(x.dtype), x)
+                         linear_weights(ww, w, x.device, wd).to(x.dtype), x)
     return x.contiguous()
 
 
 def psp_pool(c5: torch.Tensor, nbins: int) -> torch.Tensor:
-    """(B, C, h, w) → (B, C, nbins, nbins) in f32: the exact
+    """(B, C, h, w) → (B, C, nbins, nbins) in f32 (f64 stays): the exact
     reshape-mean when both dims divide ``nbins``, else JAX's
     antialiased linear resize (``decoders.py:122-132``)."""
     b, c, h, w = c5.shape
-    x = c5.float()
+    x = at_least_f32(c5)
     if h % nbins == 0 and w % nbins == 0:
         return x.reshape(b, c, nbins, h // nbins, nbins, w // nbins) \
             .mean(dim=(3, 5))
@@ -116,7 +121,7 @@ def psp_pool(c5: torch.Tensor, nbins: int) -> torch.Tensor:
 def conv_bn(cin: int, cout: int, k: int) -> nn.Sequential:
     """smp's ``Sequential(conv, BatchNorm)`` without the conv's bias."""
     return nn.Sequential(nn.Conv2d(cin, cout, k, 1, k // 2, bias=False),
-                         nn.BatchNorm2d(cout))
+                         BatchNorm2d(cout))
 
 
 class FPNSegBlock(nn.Module):

@@ -7,16 +7,23 @@ JAX needed here); output keys are the smp/torchvision names the port's
 OIHW with ``permute(3, 2, 0, 1)``, dense kernels (in, out) → (out, in).
 Every decoder family (Unet, Linknet, FPN, PSPNet) and every encoder
 (BasicBlock and Bottleneck); the decoder names are
-``convert_ynet_state_dict``'s (``torch_import.py:106-117``).
+``convert_ynet_state_dict``'s (``torch_import.py:106-117``). Arrays keep
+their float dtype, float32 at least (float64 trees give float64 tensors).
+
+:func:`optimizer_state_from_flax` carries an optax state across the same
+way (adam and adabound ``count``/``mu``/``nu``, sgd's momentum
+``trace``), so a state trained in JAX continues in the port.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping
 
 import numpy as np
 import torch
+
+from wsiseg_tpu_torch.optim import AdaBound
 
 _LAYER_RE = re.compile(r"^layer(\d+)_(\d+)$")
 # flax decoder module path → the port's conv or BN prefix
@@ -34,13 +41,18 @@ _DECODER = tuple((re.compile(pat), target) for pat, target in (
 ))
 
 
+def _float(x) -> np.dtype:
+    return np.result_type(np.asarray(x).dtype, np.float32)
+
+
 def _conv(k) -> torch.Tensor:
-    return torch.from_numpy(np.array(
-        np.asarray(k).transpose(3, 2, 0, 1), np.float32, order="C"))
+    k = np.asarray(k)
+    return torch.from_numpy(np.array(k.transpose(3, 2, 0, 1), _float(k),
+                                     order="C"))
 
 
 def _vec(v) -> torch.Tensor:
-    return torch.from_numpy(np.array(v, np.float32))
+    return torch.from_numpy(np.array(v, _float(v)))
 
 
 def _bn(sd: Dict, prefix: str, params: Mapping, stats: Mapping) -> None:
@@ -83,8 +95,9 @@ def _decoder(sd: Dict, dp: Mapping, db: Mapping) -> None:
 
 
 def _dense(sd: Dict, prefix: str, p: Mapping) -> None:
+    k = np.asarray(p["kernel"])
     sd[prefix + ".weight"] = torch.from_numpy(
-        np.array(np.asarray(p["kernel"]).T, np.float32, order="C"))
+        np.array(k.T, _float(k), order="C"))
     sd[prefix + ".bias"] = _vec(p["bias"])
 
 
@@ -116,3 +129,48 @@ def from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     _dense(sd, "regressor.fc.0", params["regressor"]["fc1"])
     _dense(sd, "regressor.fc.2", params["regressor"]["fc2"])
     return sd
+
+
+def _optax_states(node):
+    """The optax states (namedtuples) under a chain's nested tuples."""
+    if hasattr(node, "_fields"):
+        yield node
+        return
+    if isinstance(node, (tuple, list)):
+        for x in node:
+            yield from _optax_states(x)
+
+
+def optimizer_state_from_flax(opt_state, variables: Mapping, model,
+                              optimizer) -> dict:
+    """A ``state_dict`` for ``optimizer`` (built over
+    ``model.parameters()`` by :func:`wsiseg_tpu_torch.optim.
+    build_optimizer`) from the JAX ``TrainState.opt_state`` of the same
+    parameters, as numpy trees: ``mu``, ``nu`` and ``count`` of adam
+    (``ScaleByAdamState``) and adabound (``AdaBoundState``) become
+    ``exp_avg``, ``exp_avg_sq`` and ``step``; sgd's ``TraceState.trace``
+    becomes ``momentum_buffer``. ``variables`` are the matching
+    ``{"params", "batch_stats"}`` (the state's parameter trees are mapped
+    by the same names as the parameters)."""
+    names = [n for n, _ in model.named_parameters()]
+
+    def by_name(tree) -> List[torch.Tensor]:
+        sd = from_flax({"params": tree,
+                        "batch_stats": variables["batch_stats"]})
+        return [sd[n] for n in names]
+
+    per_param = [dict() for _ in names]
+    for st in _optax_states(opt_state):
+        fields = st._fields
+        if "mu" in fields and "nu" in fields:
+            count = int(np.asarray(st.count))
+            for d, m, v in zip(per_param, by_name(st.mu), by_name(st.nu)):
+                d["exp_avg"], d["exp_avg_sq"] = m, v
+                d["step"] = (count if isinstance(optimizer, AdaBound)
+                             else torch.tensor(float(count)))
+        elif "trace" in fields:
+            for d, t in zip(per_param, by_name(st.trace)):
+                d["momentum_buffer"] = t
+    out = optimizer.state_dict()
+    out["state"] = {i: d for i, d in enumerate(per_param) if d}
+    return out

@@ -1,7 +1,10 @@
 """Classification/regression heads — counterpart of
 ``wsiseg_tpu/models/heads.py``: Classifier = GAP + Linear, Regressor =
-GAP + Linear(n→n//4) + ReLU + Linear(n//4→out). Present so the whole
-parameter tree converts; ``gradient_reversal`` waits for the training port.
+GAP + Linear(n→n//4) + ReLU + Linear(n//4→out), and the gradient
+reversal function (reference models/models.py:5-17).
+
+The heads return at least float32: bf16 logits are widened, float64 ones
+(the CPU oracles) stay float64.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ class Classifier(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, C, H, W) deepest encoder feature → (B, num_classes)."""
-        return self.fc(x.mean(dim=(2, 3))).float()
+        return at_least_f32(self.fc(x.mean(dim=(2, 3))))
 
 
 class Regressor(nn.Module):
@@ -28,4 +31,25 @@ class Regressor(nn.Module):
                                 nn.Linear(in_features // 4, num_outputs))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc(x.mean(dim=(2, 3))).float()
+        return at_least_f32(self.fc(x.mean(dim=(2, 3))))
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    return x if x.dtype == torch.float64 else x.float()
+
+
+class _GradientReversal(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return -ctx.scale * g, None
+
+
+def gradient_reversal(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """Identity forward, -scale · grad backward (reference ReverseLayerF,
+    models/models.py:5-17; JAX ``heads.gradient_reversal``)."""
+    return _GradientReversal.apply(x, scale)

@@ -7,6 +7,9 @@ deepest-first, [c5, c4, c3, c2, c1], like the flax encoder. Parameter
 names are torchvision's (``conv1``, ``bn1``, ``layer{i}.{j}.conv{k}``,
 ``layer{i}.0.downsample.{0,1}``), so a reference smp checkpoint loads
 directly and :mod:`.flax_import` maps the flax tree.
+
+Every BatchNorm of the port is :class:`BatchNorm2d`: torch's, with flax's
+train-mode update of the running variance.
 """
 
 from __future__ import annotations
@@ -18,20 +21,58 @@ import torch.nn.functional as F
 from torch import nn
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` that trains as flax's ``nn.BatchNorm`` (momentum
+    0.9 = torch's 0.1, the default): the batch is normalized with its
+    biased variance, as torch does, but the running variance also takes
+    the biased one, E[x²] − E[x]², where torch takes n/(n−1) of it. At
+    the deepest layer of a small batch (8 values per channel) the two
+    differ by 8/7. Eval mode is torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        n = x.numel() // x.shape[1]
+        if n == 1:
+            return self._single(x)
+        # torch's update goes to a scratch copy (the graph keeps it), then
+        # kept + m·n/(n−1)·var becomes flax's kept + m·var
+        var = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
+                         True, self.momentum, self.eps)
+        with torch.no_grad():
+            kept = (1.0 - self.momentum) * self.running_var
+            self.running_var.copy_((var - kept) * ((n - 1) / n) + kept)
+        return y
+
+    def _single(self, x: torch.Tensor) -> torch.Tensor:
+        """One value per channel, where torch refuses to train: x equals
+        its batch mean and the variance is 0, so each output is the
+        channel's bias, and x and the scale get zero gradients (flax)."""
+        mean = x.detach().reshape(-1).to(self.running_mean.dtype)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(
+                self.momentum * mean)
+            self.running_var.mul_(1.0 - self.momentum)
+        return (x * self.weight.view(1, -1, 1, 1) * 0
+                + self.bias.view(1, -1, 1, 1)).to(x.dtype)
+
+
 class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, cin: int, cout: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(cout)
+        self.bn1 = BatchNorm2d(cout)
         self.conv2 = nn.Conv2d(cout, cout, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(cout)
+        self.bn2 = BatchNorm2d(cout)
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(
                 nn.Conv2d(cin, cout, 1, stride, bias=False),
-                nn.BatchNorm2d(cout))
+                BatchNorm2d(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.bn1(self.conv1(x)))
@@ -51,16 +92,16 @@ class Bottleneck(nn.Module):
         super().__init__()
         cout = planes * self.expansion
         self.conv1 = nn.Conv2d(cin, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = nn.Conv2d(planes, cout, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(cout)
+        self.bn3 = BatchNorm2d(cout)
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(
                 nn.Conv2d(cin, cout, 1, stride, bias=False),
-                nn.BatchNorm2d(cout))
+                BatchNorm2d(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.bn1(self.conv1(x)))
@@ -107,7 +148,7 @@ class ResNetEncoder(nn.Module):
         block_cls, stages = ENCODER_SPECS[arch]
         self.arch = arch
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         cin = 64
         for i, (n_blocks, f) in enumerate(zip(stages, (64, 128, 256, 512))):
             blocks = []

@@ -4,7 +4,8 @@ Five blocks with decoder channels (256, 128, 64, 32, 16), each a nearest
 2× upsample → concat encoder skip → two 3×3 conv+BN+ReLU. The final 3×3
 seg head (with bias) lives on the Y-Net as ``segmentation_head.0``, where
 smp keeps it. Block names follow smp (``blocks.{i}.conv{k}.{0,1}``).
-The train-mode s2d tail (``_S2dTailBlock``) waits for the training port.
+The port trains through this decoder: the JAX package's train-mode s2d
+tail (``_S2dTailBlock``) is not ported (ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -15,16 +16,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from wsiseg_tpu_torch.models.resnet import BatchNorm2d
+
 
 class DecoderBlock(nn.Module):
     def __init__(self, cin: int, cskip: int, cout: int):
         super().__init__()
         self.conv1 = nn.Sequential(
             nn.Conv2d(cin + cskip, cout, 3, 1, 1, bias=False),
-            nn.BatchNorm2d(cout), nn.ReLU())
+            BatchNorm2d(cout), nn.ReLU())
         self.conv2 = nn.Sequential(
             nn.Conv2d(cout, cout, 3, 1, 1, bias=False),
-            nn.BatchNorm2d(cout), nn.ReLU())
+            BatchNorm2d(cout), nn.ReLU())
 
     def forward(self, x: torch.Tensor,
                 skip: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -30,7 +30,7 @@ from torch import nn
 from wsiseg_tpu_torch.config import Config
 from wsiseg_tpu_torch.models.decoders import (FPNDecoder, LinknetDecoder,
                                               PSPDecoder, resize_linear)
-from wsiseg_tpu_torch.models.heads import Classifier, Regressor
+from wsiseg_tpu_torch.models.heads import Classifier, Regressor, at_least_f32
 from wsiseg_tpu_torch.models.resnet import ResNetEncoder, \
     encoder_out_channels
 from wsiseg_tpu_torch.models.unet import UNetDecoder
@@ -67,10 +67,14 @@ class YNet(nn.Module):
         f = self.head_upsample
         if f > 1:
             y = resize_linear(y, f * y.shape[2], f * y.shape[3])
-        return y.float()
+        return at_least_f32(y)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Full three-head forward. x: (B, 3, H, W) normalized float."""
+        """Full three-head forward. x: (B, 3, H, W) normalized float. In
+        train mode (``model.train()``) every BatchNorm normalizes with the
+        batch's statistics and updates its running ones as flax does
+        (:class:`~wsiseg_tpu_torch.models.resnet.BatchNorm2d`); every
+        decoder family trains through this native forward."""
         feats = self.encoder(x)
         return {"seg": self._seg(feats), "cls": self.classifier(feats[0]),
                 "reg": self.regressor(feats[0])}
@@ -80,7 +84,8 @@ class YNet(nn.Module):
         return self.encoder(x)
 
     def segment(self, x: torch.Tensor) -> torch.Tensor:
-        """encoder → decoder → seg head: (B, num_classes, H, W) float32."""
+        """encoder → decoder → seg head: (B, num_classes, H, W) float32
+        (float64 for an f64 model)."""
         return self._seg(self.encoder(x))
 
     def classify(self, x: torch.Tensor) -> torch.Tensor:

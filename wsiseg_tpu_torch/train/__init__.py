@@ -1,2 +1,2 @@
-"""Checkpoints (counterpart of :mod:`wsiseg_tpu.train`). Training itself
-is still to be ported (ROADMAP.md, queue 1, 'training')."""
+"""Training: steps, loop, checkpoints and the device epoch cache
+(counterpart of :mod:`wsiseg_tpu.train`)."""
