@@ -48,6 +48,14 @@ just before and read just after:
   patches/s and peak memory at 512², batch 30, and ``python -m
   wsiseg_tpu_torch train`` host-fed and with ``--device_cache``, each
   resumed with ``--continue_train``;
+- the proposal/HR workload (phase ``[6h]``), which launches none of the
+  kernels either: SLIC (1024×768 thumbnail of the bench image), k-means
+  and label propagation, each GPU against CPU; the resnet18 region
+  ensemble in bf16 at batch 30 × 16 × 64², GPU against CPU, and its
+  regions/s; ``run_slic_pipeline`` on a virtual pyramid (level 1
+  16384×12288) with its wall split and k-means proposals GPU against
+  CPU; the ``slic``, ``scannet`` and ``train-hr`` CLIs; a float64 HR
+  step GPU against CPU and the full-width bf16 step;
 - ``decode_fold(use_chain=True)`` at bench geometry (the chain kernel);
 - ``conv3x3_small`` at its documented head shape (the kernel has no
   caller in the serving path; its phase is its path).
@@ -1198,6 +1206,368 @@ def phase_train(dev, tmp: str, smi: str) -> dict:
     return out
 
 
+HR_BATCH = 30                    # regions a batch (Config.batch_size)
+HR_US = 4                        # thumbnail downscale (slic.py's US)
+
+
+def _median_ms(fn, n: int) -> float:
+    """Median host wall ms of n synchronized calls."""
+    return float(np.median([_host_ms(fn)[1] for _ in range(n)]))
+
+
+def _hr_store(root: str, slide_pth: str, n: int) -> str:
+    """An HR region store on a 4096² ``.npy`` slide: n regions of 8
+    center and 24 perimeter points at level 2 (classes in turn) and one
+    plain 'P' photo, the JAX tests' layout (tests/test_regions_ssr.py)."""
+    from wsiseg_tpu_torch.data import metadata as md
+    rng = np.random.RandomState(80)
+    os.makedirs(root)
+    photo = os.path.join(root, "photo.png")
+    Image.fromarray(level2_image(1536, 2048, seed=81)).save(photo)
+    regions = {}
+    for i in range(n):
+        x0, y0 = rng.randint(20, 150, 2)
+        cnt = np.stack([x0 + rng.randint(10, 70, 8),
+                        y0 + rng.randint(10, 70, 8)], 1).astype(np.int64)
+        t = np.linspace(0, 2 * np.pi, 24, endpoint=False)
+        perim = np.stack([x0 + 40 + 35 * np.cos(t), y0 + 40 + 35 * np.sin(t)],
+                         1).astype(np.int64)
+        regions[i] = {0: {"cnt_xy": cnt, "perim_xy": perim, "label": i % 4,
+                          "wsipath": slide_pth, "scan_level": 2}}
+    md.save_store({"P": {0: {0: {"cnt_xy": None, "perim_xy": None,
+                                 "label": 1, "wsipath": photo,
+                                 "scan_level": None,
+                                 "dimensions": (2048, 1536)}}},
+                   os.path.basename(slide_pth): regions}, root)
+    return root
+
+
+def _fg_agree(a, b) -> float:
+    """|a ∩ b| / max(|a|, |b|) of two (rows, cols) index tuples of one
+    4096×3072 image."""
+    fa = np.ravel_multi_index(a, (BENCH_HW[0], BENCH_HW[1]))
+    fb = np.ravel_multi_index(b, (BENCH_HW[0], BENCH_HW[1]))
+    both = np.intersect1d(fa, fb, assume_unique=True).size
+    return both / max(fa.size, fb.size, 1)
+
+
+def phase_hr(dev, tmp: str, smi: str) -> dict:
+    """The proposal/HR workload, which launches none of the port's kernels
+    (JAX's reaches no Pallas kernel either: SLIC and k-means are jnp
+    matmuls, the ensemble's trunk flax convs): every launch count is 0
+    before the phase and still 0 after it. Full width: the bench
+    geometry's level-2 image (4096×3072) and its 1024×768 SLIC thumbnail
+    (200 segments → K = 204 centers, N = 786,432 pixels); the resnet18
+    region ensemble on 16 patches of 64² a region, batch 30, bf16.
+
+    a. SLIC on the thumbnail: ms per call on the card (median of 5 after
+       a warm-up), peak memory; labels GPU against CPU at full size,
+       ≥ 99 % equal.
+    b. k-means at ``get_key_points``' cap (16384 points, k = 8): the same
+       host seeds, centers within 1e-4·max|c|, labels ≥ 99.9 % equal;
+       ``label_propagation`` of the thumbnail's tissue mask, exactly
+       equal, with its step count.
+    c. The ensemble's bf16 compute copy at batch 30: both outputs GPU
+       against CPU within SPIE_TOL·max(1, |CPU|); regions/s on a resident
+       batch and from host u8 patches (median of 20, synchronized).
+    d. ``run_slic_pipeline`` on a ``VirtualPyramidSlide`` (level 2 the
+       bench image, level 1 the same repeated 4× per axis: real level-1
+       patch reads): wall split into its parts, proposals, peak memory;
+       ``slic_proposals`` with k-means on the CPU from the card's
+       upscaled labels: same keys, centers within US_KMEANS px,
+       foreground sets ≥ 99 % equal.
+    e. ``python -m wsiseg_tpu_torch slic`` and ``scannet`` on a 4096²
+       ``.npy`` slide (two PNGs each, classes in range) and ``train-hr``
+       on a 61-region store, 2 epochs and a resumed third (regions/s
+       per epoch, host reads included).
+    f. One float64 sgd HR step GPU against CPU within TRAIN_REL·max(1,
+       |CPU|); the full-width bf16 adam step on a resident batch (3
+       warm-up steps, 10 timed): ms/step, regions/s, peak memory."""
+    import contextlib
+
+    from wsiseg_tpu_torch.__main__ import main
+    from wsiseg_tpu_torch.cli import slic_demo
+    from wsiseg_tpu_torch.cli.common import (make_hr_apply, make_preprocess,
+                                             setup_hr)
+    from wsiseg_tpu_torch.config import default_config
+    from wsiseg_tpu_torch.models.ensemble import compute_copy, init_ensemble
+    from wsiseg_tpu_torch.ops import kmeans
+    from wsiseg_tpu_torch.ops.cc import label_propagation_steps
+    from wsiseg_tpu_torch.ops.slic import slic
+    from wsiseg_tpu_torch.ops.tissue import find_nuclei
+    from wsiseg_tpu_torch.optim import build_optimizer
+    from wsiseg_tpu_torch.proposals import slic_proposals
+    from wsiseg_tpu_torch.slides.reader import VirtualPyramidSlide
+    from wsiseg_tpu_torch.train.state import TrainState, save_checkpoint
+    from wsiseg_tpu_torch.train.steps import make_hr_train_step
+
+    reset_counts()
+    t_phase = time.time()
+    cpu = torch.device("cpu")
+    hh, ww = BENCH_HW
+    l2 = level2_image(hh, ww, seed=90)
+    thumb = np.array(Image.fromarray(l2).resize((ww // HR_US, hh // HR_US)))
+    th = torch.from_numpy(thumb)
+    out = {}
+
+    # a. SLIC
+    tg = th.to(dev)
+    slic(tg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["slic_ms"] = _median_ms(lambda: slic(tg), 5)
+    out["slic_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    lab_g = slic(tg).cpu()
+    t0 = time.time()
+    lab_c = slic(th)
+    out["slic_cpu_s"] = time.time() - t0
+    slic_eq = (lab_g == lab_c).float().mean().item()
+    assert slic_eq >= 0.99, slic_eq
+    print(f"[6h] a. SLIC {ww // HR_US}x{hh // HR_US} (200 segments, K = "
+          f"{int(lab_c.max()) + 1}): {out['slic_ms']:.3f} ms/call on the "
+          f"card (median of 5), peak {out['slic_peak_gb']:.4f} GB; labels "
+          f"GPU vs CPU (full size, CPU {out['slic_cpu_s']:.2f} s) "
+          f"{slic_eq:.6f} equal | {smi}", flush=True)
+
+    # b. k-means at the cap, label propagation
+    tissue = find_nuclei(th)
+    ys, xs = np.nonzero(tissue.numpy())
+    pts = np.stack([xs, ys], 1).astype(np.float32)
+    pts = pts[np.random.RandomState(0).choice(len(pts), 16384,
+                                              replace=False)]
+    pc, pg = torch.from_numpy(pts), torch.from_numpy(pts).to(dev)
+    seeds_equal = np.array_equal(kmeans.plusplus_init(pg, 8),
+                                 kmeans.plusplus_init(pc, 8))
+    assert seeds_equal
+    cg, lg = kmeans.kmeans(pg, 8)
+    cc, lc = kmeans.kmeans(pc, 8)
+    km_d = (cg.cpu() - cc).abs().max().item()
+    km_eq = (lg.cpu() == lc).float().mean().item()
+    assert km_d <= 1e-4 * cc.abs().max().item() and km_eq >= 0.999, \
+        (km_d, km_eq)
+    out["kmeans_ms"] = _median_ms(lambda: kmeans.kmeans(pg, 8), 5)
+    (cc_g, steps_g), cc_ms = _host_ms(
+        lambda: label_propagation_steps(tissue.to(dev)))
+    cc_c, steps_c = label_propagation_steps(tissue)
+    assert steps_g == steps_c and torch.equal(cc_g.cpu(), cc_c)
+    print(f"[6h] b. k-means 16384 points, k = 8: seeds GPU == CPU, centers "
+          f"max|d| {km_d:.4g} (limit {1e-4 * cc.abs().max().item():.4g}), "
+          f"labels {km_eq:.6f} equal, {out['kmeans_ms']:.3f} ms/call on the "
+          f"card; label_propagation {ww // HR_US}x{hh // HR_US} tissue "
+          f"mask: equal, {steps_g} steps, {cc_ms:.3f} ms on the card",
+          flush=True)
+
+    # c. the ensemble, bf16, batch 30
+    cfg = default_config()
+    model = init_ensemble(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(91)
+    yx = rng.randint(0, hh - 64, (HR_BATCH * 16, 2))
+    u8 = np.stack([l2[y:y + 64, x:x + 64] for y, x in yx]).reshape(
+        HR_BATCH, 16, 64, 64, 3)
+    norm = make_preprocess(cfg, train=False)(
+        {"image": torch.from_numpy(u8)})["image"]
+    with torch.no_grad():
+        net_c = compute_copy(model, torch.bfloat16)
+        ref = net_c(norm)
+        net_g = compute_copy(model, torch.bfloat16).to(dev)
+        ng = norm.to(dev)
+        got = net_g(ng)
+        ens_d = max(((g.cpu() - r).abs() / r.abs().clamp(min=1.0)).max()
+                    .item() for g, r in zip(got, ref))
+        assert ens_d <= SPIE_TOL, ens_d
+        net_g(ng)
+        fwd_ms = _median_ms(lambda: net_g(ng), 20)
+    apply = make_hr_apply(model, cfg, dev)
+    apply(u8)
+    apply_ms = _median_ms(lambda: apply(u8), 20)
+    out.update(hr_forward_ms=fwd_ms,
+               hr_regions_per_sec=HR_BATCH / fwd_ms * 1e3,
+               hr_apply_regions_per_sec=HR_BATCH / apply_ms * 1e3)
+    print(f"[6h] c. ensemble resnet18, {HR_BATCH}x16x64x64 bf16: GPU vs CPU "
+          f"max rel |d| {ens_d:.4g} (limit {SPIE_TOL:.4g}); resident "
+          f"forward {fwd_ms:.3f} ms, {out['hr_regions_per_sec']:.1f} "
+          f"regions/s; from host u8 (H2D, normalize) {apply_ms:.3f} ms, "
+          f"{out['hr_apply_regions_per_sec']:.1f} regions/s (median of 20)",
+          flush=True)
+    del net_c, net_g, ng
+
+    # d. run_slic_pipeline end to end
+    slide = VirtualPyramidSlide(
+        {1: np.repeat(np.repeat(l2, 4, 0), 4, 1), 2: l2}, num_levels=3)
+    parts, seen = {}, {}
+
+    def timed(name, fn, sync=False):
+        def wrapped(*a, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            parts[name] = parts.get(name, 0.0) + time.perf_counter() - t
+            seen.setdefault(name, (a, r))
+            return r
+        return wrapped
+
+    forward = slic_demo.make_hr_forward(model, cfg, dev)
+    orig = {k: getattr(slic_demo, k) for k in (
+        "slic", "slic_proposals", "classify_proposals", "paint_mask_rgb",
+        "mark_boundaries")}
+    save = Image.Image.save
+    try:
+        for k, fn in orig.items():
+            setattr(slic_demo, k, timed(k, fn, sync=k == "slic"))
+        Image.Image.save = timed("png", save)
+        with contextlib.chdir(tmp):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            mask = slic_demo.run_slic_pipeline(
+                slide, "bench.virtual", cfg,
+                timed("ensemble", forward, sync=True), device=dev)
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            pngs = [np.asarray(Image.open(f"slic_out{s}.png")).shape
+                    for s in ("_mask", "")]
+    finally:
+        for k, fn in orig.items():
+            setattr(slic_demo, k, fn)
+        Image.Image.save = save
+    (labels_up, *_), meta_g = seen["slic_proposals"]
+    assert mask.shape == (hh, ww) and 0 <= mask.min() and mask.max() < 4
+    assert pngs == [(hh // HR_US, ww // HR_US, 3), (hh, ww, 3)], pngs
+    t0 = time.time()
+    meta_c = slic_proposals(labels_up, "bench.virtual", us_kmeans=HR_US,
+                            device="cpu")
+    cpu_prop_s = time.time() - t0
+    assert sorted(meta_g) == sorted(meta_c) and meta_g
+    d_cnt = max(np.abs(meta_g[k]["cnt_xy"] - meta_c[k]["cnt_xy"]).max()
+                for k in meta_c)
+    fg = min(_fg_agree(meta_g[k]["foreground_indices"],
+                       meta_c[k]["foreground_indices"]) for k in meta_c)
+    assert d_cnt <= slic_demo.US_KMEANS and fg >= 0.99, (d_cnt, fg)
+    split = {k: round(v, 3) for k, v in parts.items()}
+    split["classify_host"] = round(parts["classify_proposals"]
+                                   - parts["ensemble"], 3)
+    split["rest"] = round(wall - sum(parts[k] for k in (
+        "slic", "slic_proposals", "classify_proposals", "paint_mask_rgb",
+        "mark_boundaries", "png")), 3)
+    out.update(slic_pipeline_s=wall, slic_pipeline_peak_gb=peak,
+               proposals=len(meta_g), slic_pipeline_split=split)
+    print(f"[6h] d. run_slic_pipeline, {ww}x{hh} level 2 (level 1 "
+          f"{ww * 4}x{hh * 4}): {wall:.3f} s wall, {len(meta_g)} proposals, "
+          f"painted classes {sorted(np.unique(mask).tolist())}, peak "
+          f"{peak:.4f} GB; split (s): {split}; slic_proposals k-means GPU "
+          f"vs CPU (CPU {cpu_prop_s:.2f} s): keys equal, centers max|d| "
+          f"{d_cnt} px (limit {slic_demo.US_KMEANS}), foreground sets "
+          f">= {fg:.6f} equal | {smi}", flush=True)
+    del slide
+
+    # e. the CLIs
+    root = os.path.join(tmp, "hr")
+    os.makedirs(root)
+    small_l2 = level2_image(256, 256, seed=92)
+    npy = os.path.join(root, "slide.npy")
+    np.save(npy, np.repeat(np.repeat(small_l2, 16, 0), 16, 1))
+    gt = np.zeros((256, 256), np.uint8)
+    gt[30:102, 40:112] = 2           # bbox > 5 %: split by k-means into
+    gt[150:222, 130:202] = 1         # 9-center proposals (the last label
+    gt_pth = os.path.join(root, "gt.png")   # is never visited: ROADMAP §3)
+    Image.fromarray(gt).save(gt_pth)
+    ck = os.path.join(root, "ck")
+    shifted = init_ensemble(cfg, torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        shifted.fc_2.bias[2] += 30.0     # painted proposals show as class 2
+    save_checkpoint(shifted, ck, cfg.arch_encoder, 0)
+    demo = {}
+    for cmd, extra in (("slic", ["--num_segments", "12"]),
+                       ("scannet", ["--gt_thumbnail", gt_pth])):
+        d = os.path.join(root, cmd)
+        os.makedirs(d)
+        with contextlib.chdir(d):
+            t0 = time.time()
+            m = main([cmd, npy, "--eval_model_pth", ck] + extra)
+            demo[cmd] = round(time.time() - t0, 3)
+            shapes = [np.asarray(Image.open(f"{cmd}_out{s}.png")).shape
+                      for s in ("_mask", "")]
+        assert shapes == [(64, 64, 3), (256, 256, 3)], (cmd, shapes)
+        assert m.min() >= 0 and m.max() < 4 and (m == 2).mean() > 0.05, cmd
+    store = _hr_store(os.path.join(root, "store"), npy, 60)
+    hr_ck = os.path.join(root, "train_ck")
+    args = ["train-hr", "--train_hr_image_pth", store, "--val_hr_image_pth",
+            store, "--model_save_pth", hr_ck, "--train_model_pth",
+            os.path.join(hr_ck, "*"), "--save_models", "1"]
+    first = main(args + ["--num_epoch", "2"])
+    again = main(args + ["--num_epoch", "3", "--continue_train", "true"])
+    hist = first.history + again.history
+    assert [r["epoch"] for r in hist] == [1, 2, 3], hist
+    assert again.state.step == 3 * first.state.step // 2
+    assert all(np.isfinite(r["loss"]) and 0 <= r["val_acc"] <= 1
+               for r in hist), hist
+    rates = [round(r["patches_per_sec"], 3) for r in hist]
+    out["train_hr_epoch_regions_per_sec"] = rates
+    print(f"[6h] e. CLIs on a 4096^2 .npy slide: slic {demo['slic']} s, "
+          f"scannet {demo['scannet']} s (both PNGs, classes in range); "
+          f"train-hr on 61 regions (60 slide regions + 1 photo), batch "
+          f"{HR_BATCH}, 2 epochs + resume: regions/s per epoch {rates}, "
+          f"val acc {[round(r['val_acc'], 4) for r in hist]}", flush=True)
+
+    # f. training steps
+    cfg64 = default_config(compute_dtype="float64", param_dtype="float64",
+                           optim="sgd", lr=1e-2)
+    r = np.random.RandomState(93)
+    host = {"image": r.randint(0, 256, (2, 16, 32, 32, 3)).astype(np.uint8),
+            "cls_label": np.array([3, 1], np.int32)}
+    res = []
+    for d in (dev, cpu):
+        net = init_ensemble(cfg64, torch.Generator().manual_seed(2))
+        net = net.double().to(d)
+        st = TrainState(net, build_optimizer(cfg64, net.parameters()))
+        b = make_preprocess(cfg64, train=False)(
+            {k: torch.from_numpy(v).to(d) for k, v in host.items()})
+        m = make_hr_train_step(net, cfg64, class_weights=[0.2, 1, 0.5,
+                                                          0.7])(st, b)
+        res.append(({k: float(v) for k, v in m.items()},
+                    {k: v.detach().cpu() for k, v in
+                     net.state_dict().items()}))
+    (mg, sg), (mc, sc) = res
+    d64 = max(abs(mg[k] - mc[k]) / max(1.0, abs(mc[k])) for k in mc)
+    for k, v in sc.items():
+        if v.is_floating_point():
+            d64 = max(d64, ((sg[k] - v).abs() / v.abs().clamp(min=1.0))
+                      .max().item())
+    assert d64 <= TRAIN_REL, f"f64 HR step GPU vs CPU: {d64}"
+    state, _ = setup_hr(cfg.replace(model_save_pth=os.path.join(
+        tmp, "unused")), dev)
+    step = make_hr_train_step(state.model, cfg, class_weights=[1, 1, 1, 1])
+    batch = make_preprocess(cfg)(
+        {"image": torch.from_numpy(u8).to(dev),
+         "cls_label": torch.arange(HR_BATCH, device=dev) % 4},
+        torch.Generator(device=dev).manual_seed(0))
+    losses = [step(state, batch)["loss"] for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    for _ in range(10):
+        losses.append(step(state, batch)["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) / 10 * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    vals = torch.stack(losses).float().cpu()
+    assert torch.isfinite(vals).all(), vals
+    counts = read_counts()
+    assert sum(counts.values()) == 0, f"HR path launched kernels: {counts}"
+    out.update(hr_step_ms=step_ms, hr_train_regions_per_sec=HR_BATCH
+               / step_ms * 1e3, hr_step_peak_gb=peak_gb, hr_f64_rel=d64)
+    print(f"[6h] f. train: f64 sgd HR step (resnet18, 2x16x32x32) GPU vs "
+          f"CPU max rel |d| {d64:.4g} (limit {TRAIN_REL:g}); full width "
+          f"({HR_BATCH}x16x64x64, bf16 autocast, adam, resident batch): "
+          f"{step_ms:.3f} ms/step, {out['hr_train_regions_per_sec']:.1f} "
+          f"regions/s, peak {peak_gb:.3f} GB, losses "
+          f"{[round(float(v), 4) for v in vals]}; g. 0 kernel launches; "
+          f"{time.time() - t_phase:.1f} s | {smi}", flush=True)
+    return out
+
+
 def _grid_stages(engine, plan) -> dict:
     """CUDA-event ms of the grid route's stages on its first full tile
     batch: gather, forward, the sequential adds into the canvas, and the
@@ -1428,6 +1798,7 @@ def main() -> None:
         eval_full = phase_eval_full(dev, tmp, smi)
         phase_patch_evals(dev, tmp)
         phase_train(dev, tmp, smi)
+        phase_hr(dev, tmp, smi)
     routes = phase_routes(dev)
     chain = phase_fold_chain(dev)
     head = phase_head(dev)

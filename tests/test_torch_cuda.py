@@ -10,7 +10,9 @@ GPU against CPU, and the streamed grid against the resident one on the
 card; the binary morphology, the tumor bed and the color mask on the card
 exactly equal to the CPU; a float64 training step on the card against
 the CPU (no kernel of the port launched) and the ``train`` CLI on the
-card.
+card; the proposal/HR ops on the card against the CPU: k-means seeds
+equal, Lloyd, SLIC, label propagation (exact), the HR ensemble in bf16
+and a float64 HR step.
 They skip where ``torch.cuda.is_available()`` is False. This file imports
 no JAX, so it also runs on a machine without it:
 
@@ -479,3 +481,93 @@ def test_train_cli_on_gpu(tmp_path):
                         str(ck), "--raw_val_pth", ""] + extra)
         assert all(np.isfinite(h["loss"]) for h in trainer.history)
         assert (ck / "model_resnet18_2.pt").exists()
+
+
+def test_kmeans_gpu_matches_cpu(cuda_device):
+    """k-means at ``get_key_points``' cap (16384 points, k = 8): the host
+    seeds are the same for points on the card; Lloyd's centers within
+    1e-4·max|c| and labels ≥ 99.9 % equal."""
+    from wsiseg_tpu_torch.ops import kmeans
+    r = np.random.RandomState(3)
+    pts = (r.rand(16384, 2) * [1024, 768]).astype(np.float32)
+    cpu = torch.from_numpy(pts)
+    np.testing.assert_array_equal(
+        kmeans.plusplus_init(cpu.to(cuda_device), 8, seed=4),
+        kmeans.plusplus_init(cpu, 8, seed=4))
+    cg, lg = kmeans.kmeans(cpu.to(cuda_device), 8, seed=4)
+    cc, lc = kmeans.kmeans(cpu, 8, seed=4)
+    torch.testing.assert_close(cg.cpu(), cc, rtol=0,
+                               atol=1e-4 * cc.abs().max().item())
+    assert (lg.cpu() == lc).float().mean().item() >= 0.999
+
+
+def test_slic_gpu_matches_cpu(cuda_device):
+    """SLIC on a 192×256 thumbnail (60 segments): labels ≥ 99 % equal."""
+    from wsiseg_tpu_torch.ops.slic import slic
+    img = torch.from_numpy(level2_image(192, 256, seed=6))
+    got = slic(img.to(cuda_device), n_segments=60).cpu()
+    ref = slic(img, n_segments=60)
+    assert (got == ref).float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+def test_label_propagation_gpu_equals_cpu(cuda_device, connectivity):
+    from wsiseg_tpu_torch.ops.cc import label_propagation_steps
+    r = np.random.RandomState(connectivity)
+    m = torch.from_numpy((r.rand(96, 128) < 0.55).astype(np.uint8))
+    lg, ng = label_propagation_steps(m.to(cuda_device),
+                                     connectivity=connectivity)
+    lc, nc = label_propagation_steps(m, connectivity=connectivity)
+    assert ng == nc and torch.equal(lg.cpu(), lc)
+
+
+def test_ensemble_bf16_gpu_matches_cpu(cuda_device):
+    """The HR ensemble's bf16 compute copy (resnet18, 2 regions × 16
+    patches of 64²) on the card against the CPU: both outputs within
+    2^-5·max(1, |CPU|)."""
+    from wsiseg_tpu_torch.models.ensemble import compute_copy, init_ensemble
+    model = init_ensemble(default_config(), torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.RandomState(2).randn(
+        2, 16, 64, 64, 3).astype(np.float32))
+    with torch.no_grad():
+        ref = compute_copy(model, torch.bfloat16)(x)
+        got = compute_copy(model, torch.bfloat16).to(cuda_device)(
+            x.to(cuda_device))
+    for g, r in zip(got, ref):
+        d = ((g.cpu() - r).abs() / r.abs().clamp(min=1.0)).max().item()
+        assert d <= 2.0 ** -5, d
+
+
+def test_hr_step_gpu_matches_cpu_f64(cuda_device):
+    """A float64 sgd HR step with class weights (resnet18 ensemble, 2
+    regions × 16 patches of 32²) on the card equals the CPU's within
+    1e-9·max(1, |CPU|)."""
+    from wsiseg_tpu_torch.cli.common import make_preprocess
+    from wsiseg_tpu_torch.models.ensemble import init_ensemble
+    from wsiseg_tpu_torch.optim import build_optimizer
+    from wsiseg_tpu_torch.train.state import TrainState
+    from wsiseg_tpu_torch.train.steps import make_hr_train_step
+    cfg = default_config(compute_dtype="float64", param_dtype="float64",
+                         optim="sgd", lr=1e-2)
+    r = np.random.RandomState(9)
+    host = {"image": r.randint(0, 256, (2, 16, 32, 32, 3)).astype(np.uint8),
+            "cls_label": np.array([3, 1], np.int32)}
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        net = init_ensemble(cfg, torch.Generator().manual_seed(1))
+        net = net.double().to(dev)
+        state = TrainState(net, build_optimizer(cfg, net.parameters()))
+        batch = make_preprocess(cfg, train=False)(
+            {k: torch.from_numpy(v).to(dev) for k, v in host.items()})
+        m = make_hr_train_step(net, cfg, class_weights=[0.2, 1, 0.5, 0.7])(
+            state, batch)
+        out.append(({k: float(v) for k, v in m.items()},
+                    {k: v.detach().cpu() for k, v in
+                     net.state_dict().items()}))
+    (mg, sg), (mc, sc) = out
+    for k in mc:
+        assert abs(mg[k] - mc[k]) <= 1e-9 * max(1.0, abs(mc[k])), k
+    for k, ref in sc.items():
+        if ref.is_floating_point():
+            d = ((sg[k] - ref).abs() / ref.abs().clamp(min=1.0)).max()
+            assert d.item() <= 1e-9, (k, d.item())

@@ -223,7 +223,7 @@ def test_cli_eval_tumorbed_writes_heatmap(tmp_path):
 def test_unported_command_points_at_roadmap():
     from wsiseg_tpu_torch.__main__ import main
     with pytest.raises(SystemExit, match="ROADMAP"):
-        main(["train-hr"])
+        main(["preprocess"])
 
 
 def test_writers_match_jax(cfg, tmp_path):

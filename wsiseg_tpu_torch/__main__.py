@@ -1,10 +1,11 @@
 """``python -m wsiseg_tpu_torch <command> [flags]`` — CLI dispatcher.
 
 The port serves the evaluation commands (``eval``, ``eval-tumorbed``,
-``eval-spie``) and the trainers (``train``, ``train-cellularity``,
-``train-p``, ``train-ssr``); the JAX package's other commands
-(``train-hr``, ``slic``, ``scannet``, ``preprocess`` and the paper tools)
-are still to be ported, in the order ROADMAP.md lists. Slide conversion
+``eval-spie``), the trainers (``train``, ``train-cellularity``,
+``train-p``, ``train-ssr``, ``train-hr``) and the region-proposal demos
+(``slic``, ``scannet``); the JAX package's other commands
+(``preprocess`` and the paper tools) are still to be ported, in the order
+ROADMAP.md lists. Slide conversion
 runs as ``python -m wsiseg_tpu_torch.cli.convert_slide``, as in the JAX
 package.
 """
@@ -30,6 +31,12 @@ COMMANDS = {
                 "patch classification trainer (train_p.py)"),
     "train-ssr": ("wsiseg_tpu_torch.cli.train_ssr",
                   "same-sized-region segmentation trainer (train_ssr.py)"),
+    "train-hr": ("wsiseg_tpu_torch.cli.train_hr",
+                 "multi-patch region-ensemble trainer (train_hr.py)"),
+    "slic": ("wsiseg_tpu_torch.cli.slic_demo",
+             "SLIC proposal demo (slic.py)"),
+    "scannet": ("wsiseg_tpu_torch.cli.scannet_demo",
+                "CC proposal demo (scannet.py)"),
 }
 
 

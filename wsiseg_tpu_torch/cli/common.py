@@ -1,6 +1,7 @@
 """Shared CLI plumbing — counterpart of ``wsiseg_tpu/cli/common.py``:
-the Y-Net with its optimizer and resume (``setup_ynet``), the eval
-restore, the device-side batch preprocessing, and the eval and train
+the Y-Net and the HR region ensemble with their optimizers and resume
+(``setup_ynet``, ``setup_hr``), the eval restore, the device-side batch
+preprocessing, the HR ensemble's serving forward, and the eval and train
 flag pre-parsers (the JAX package's flags plus ``--device``)."""
 
 from __future__ import annotations
@@ -8,11 +9,13 @@ from __future__ import annotations
 import argparse
 from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
 
 from wsiseg_tpu_torch.config import Config
 from wsiseg_tpu_torch.data.patches import normalize_batch_images
 from wsiseg_tpu_torch.infer.engine import MULTI_GPU_ITEM, resolve_device
+from wsiseg_tpu_torch.models import ensemble
 from wsiseg_tpu_torch.models.torch_import import apply_pretrained
 from wsiseg_tpu_torch.models.ynet import YNet, init_ynet
 from wsiseg_tpu_torch.optim import build_optimizer
@@ -37,8 +40,26 @@ def setup_ynet(cfg: Config, device="cuda") -> Tuple[TrainState, int]:
     the latest ``cfg.train_model_pth`` checkpoint when
     ``cfg.continue_train`` (restored epoch + 1, reference
     utils/networks.py:4-12). Returns (state, start_epoch)."""
+    return _setup(cfg, _init(cfg), device)
+
+
+def setup_hr(cfg: Config, device="cuda") -> Tuple[TrainState, int]:
+    """:func:`setup_ynet` for the multi-patch region ensemble (reference
+    resnets_shift.resnet18, train_hr.py:21-22): fresh weights from
+    ``cfg.seed``; ``cfg.pretrained_pth`` is grafted into the ``trunk``
+    only, the dense heads stay random (resnets_shift.py:230-240)."""
     device = resolve_device(device)
-    model = _init(cfg).to(device, getattr(torch, cfg.param_dtype))
+    model = ensemble.init_ensemble(
+        cfg, torch.Generator().manual_seed(cfg.seed))
+    if cfg.pretrained_pth:
+        apply_pretrained(model, cfg.pretrained_pth, encoder_name="trunk")
+        print(f"grafted pretrained trunk from {cfg.pretrained_pth}")
+    return _setup(cfg, model, device)
+
+
+def _setup(cfg: Config, model, device) -> Tuple[TrainState, int]:
+    device = resolve_device(device)
+    model = model.to(device, getattr(torch, cfg.param_dtype))
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
     state = TrainState(model, build_optimizer(cfg, model.parameters()))
@@ -51,11 +72,13 @@ def setup_ynet(cfg: Config, device="cuda") -> Tuple[TrainState, int]:
     return state, start_epoch
 
 
-def restore_for_eval(cfg: Config):
-    """Y-Net with the latest ``cfg.eval_model_pth`` checkpoint, or the
-    fresh (and grafted) weights with a warning when there is none.
-    Returns (model, epoch) like the JAX function."""
-    model = _init(cfg)
+def restore_for_eval(cfg: Config, setup=setup_ynet):
+    """The model ``setup`` builds (:func:`setup_ynet`'s Y-Net or
+    :func:`setup_hr`'s ensemble, on the CPU) with the latest
+    ``cfg.eval_model_pth`` checkpoint, or its fresh (and grafted) weights
+    with a warning when there is none. Returns (model, epoch) like the JAX
+    function."""
+    model = setup(cfg, device="cpu")[0].model
     pth = latest_checkpoint(cfg.eval_model_pth)
     if pth:
         model, epoch = restore_checkpoint(pth, model)
@@ -70,15 +93,37 @@ def restore_for_eval(cfg: Config):
 def make_preprocess(cfg: Config, train: bool = True) -> Callable:
     """``fn(batch, generator)``: the batch's u8 images → normalized float
     on their device, with the train jitter drawn from ``generator`` when
-    ``train``."""
+    ``train``. An HR batch's (B, P, H, W, 3) patches are normalized as
+    B·P images (B·P jitter draws)."""
 
     def preprocess(batch: Dict, generator=None) -> Dict:
         out = dict(batch)
-        out["image"] = normalize_batch_images(batch["image"], cfg,
-                                              generator, train=train)
+        img = batch["image"]
+        flat = img.reshape(-1, *img.shape[-3:])
+        out["image"] = normalize_batch_images(
+            flat, cfg, generator, train=train).reshape(img.shape)
         return out
 
     return preprocess
+
+
+def make_hr_apply(model, cfg: Config, device="cuda") -> Callable:
+    """``fn(images_u8 (B, P, h, w, 3) numpy) -> (per_patch (B, P, C),
+    ensemble (B, C))`` as float32 numpy: the patches to ``device``,
+    normalized, through the ensemble's compute copy in
+    ``cfg.compute_dtype`` (JAX's ``make_hr_forward`` with both outputs)."""
+    dev = resolve_device(device)
+    net = ensemble.compute_copy(model, getattr(torch, cfg.compute_dtype))
+    net = net.to(dev)
+
+    @torch.no_grad()
+    def apply(images_u8):
+        x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(dev)
+        per_patch, ens = net(make_preprocess(cfg, train=False)(
+            {"image": x})["image"])
+        return per_patch.cpu().numpy(), ens.cpu().numpy()
+
+    return apply
 
 
 def check_single_device(cfg: Config) -> None:

@@ -3,8 +3,9 @@ parts of ``wsiseg_tpu/data/ssr.py`` (reference ``utils/dataset_ssr.py``):
 paired ``*_image.png`` / ``*_gt.png`` regions (an RGB mask → argmax class
 labels with an implicit background channel, :50-52), oversampled ×10 for
 training, and their class distribution. Batches are numpy and identical
-to JAX's for one seed. The HR region parts (``cls_ratios_hr``,
-``SSRClsDataset``) wait for the HR trainer (ROADMAP.md, queue 1).
+to JAX's for one seed. Beside them the HR region parts: the class
+distribution of an HR region store (``cls_ratios_hr``) and the gt.npy
+region classification dataset (``SSRClsDataset``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from PIL import Image
 
 from wsiseg_tpu_torch.config import Config
 from wsiseg_tpu_torch.data import metadata as md
+from wsiseg_tpu_torch.utils.filesystem import fix_path
 
 # the reference resizes every region to 512×512 (dataset_ssr.py:47-48)
 SSR_SIZE = 512
@@ -109,3 +111,75 @@ def cls_ratios_ssr(impth: str, cfg: Config, ignore_index=None,
         numsamples[ignore_index] = 0
     total = numsamples.sum()
     return numsamples / total if total > 0 else numsamples
+
+
+def cls_ratios_hr(impth: str, cfg: Config, ignore_index=None,
+                  device="cuda") -> np.ndarray:
+    """Class distribution of an HR region store — reference
+    utils/preprocessing.py:312-355 (the dataset-side equivalent is
+    ``HRRegionDataset.cls_ratios``, computed with the same validity
+    filter; ``device`` runs the plain patches' keypoints)."""
+    from wsiseg_tpu_torch.data.regions import HRRegionDataset
+
+    ds = HRRegionDataset(impth, cfg, eval=True, device=device)
+    ratios = np.asarray(ds.cls_ratios, np.float64)
+    if ignore_index is not None:
+        ratios = ratios.copy()
+        ratios[ignore_index] = 0
+        total = ratios.sum()
+        ratios = ratios / total if total > 0 else ratios
+    return ratios
+
+
+class SSRClsDataset:
+    """gt.npy-backed region classification dataset
+    (reference dataset_ssr.py:72-107)."""
+
+    def __init__(self, impth: str, cfg: Config, eval: bool = False,
+                 duplicate: int = 10, seed: int = 0):
+        self.cfg = cfg
+        self.eval = eval
+        self._rng = np.random.RandomState(seed)
+        store = md.load_store(impth)
+        if not store:
+            raise FileNotFoundError(f"no gt.npy under {impth}")
+        self.datalist: List[dict] = []
+        for key in store:
+            for tile_id in store[key]:
+                rec = store[key][tile_id]
+                self.datalist.append({"image": fix_path(rec["image"]),
+                                      "label": int(rec["label"])})
+        if not eval and duplicate > 1:
+            self.datalist = [d for d in self.datalist
+                             for _ in range(duplicate)]
+
+    def __len__(self) -> int:
+        return len(self.datalist)
+
+    def batches(self, batch_size: Optional[int] = None,
+                shuffle: Optional[bool] = None
+                ) -> Iterator[Dict[str, np.ndarray]]:
+        bs = batch_size or self.cfg.batch_size
+        shuffle = (not self.eval) if shuffle is None else shuffle
+        order = np.arange(len(self.datalist))
+        if shuffle:
+            self._rng.shuffle(order)
+        h, w = self.cfg.tile_h, self.cfg.tile_w
+        for start in range(0, len(order), bs):
+            idx = order[start:start + bs]
+            n = len(idx)
+            batch = {
+                "image": np.zeros((n, h, w, 3), np.uint8),
+                "cls_label": np.zeros((n,), np.int32),
+            }
+            for bi, ri in enumerate(idx):
+                item = self.datalist[ri]
+                img = Image.open(item["image"]).convert("RGB")
+                if not self.eval:
+                    k = int(self._rng.randint(0, 4))
+                    if k:
+                        img = img.rotate(90 * k, expand=True)
+                img = img.resize((w, h))
+                batch["image"][bi] = np.asarray(img, np.uint8)
+                batch["cls_label"][bi] = item["label"]
+            yield batch

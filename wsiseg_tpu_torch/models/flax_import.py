@@ -1,5 +1,6 @@
 """Flax Y-Net variables → the port's ``state_dict`` — counterpart (and
-exact inverse) of ``wsiseg_tpu/models/torch_import.convert_ynet_state_dict``.
+exact inverse) of ``wsiseg_tpu/models/torch_import.convert_ynet_state_dict``
+— and the HR ensemble's (:func:`ensemble_from_flax`).
 
 Input is the JAX ``{"params", "batch_stats"}`` tree as numpy arrays (no
 JAX needed here); output keys are the smp/torchvision names the port's
@@ -12,7 +13,8 @@ their float dtype, float32 at least (float64 trees give float64 tensors).
 
 :func:`optimizer_state_from_flax` carries an optax state across the same
 way (adam and adabound ``count``/``mu``/``nu``, sgd's momentum
-``trace``), so a state trained in JAX continues in the port.
+``trace``), so a state trained in JAX continues in the port, the
+Y-Net's or the HR ensemble's.
 """
 
 from __future__ import annotations
@@ -101,20 +103,18 @@ def _dense(sd: Dict, prefix: str, p: Mapping) -> None:
     sd[prefix + ".bias"] = _vec(p["bias"])
 
 
-def from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """``{"params", "batch_stats"}`` numpy tree → YNet ``state_dict``."""
-    params, stats = variables["params"], variables["batch_stats"]
-    sd: Dict[str, torch.Tensor] = {}
-
-    ep, eb = params["encoder"], stats["encoder"]
-    sd["encoder.conv1.weight"] = _conv(ep["stem_conv"]["kernel"])
-    _bn(sd, "encoder.bn1", ep["stem_bn"], eb["stem_bn"])
-    for name, p in ep.items():
-        m = _LAYER_RE.match(name)
+def _encoder(sd: Dict, name: str, params: Mapping, stats: Mapping) -> None:
+    """The flax ``ResNetEncoder`` under ``name`` (``encoder`` in the Y-Net,
+    ``trunk`` in the ensemble) → torchvision keys under the same name."""
+    ep, eb = params[name], stats[name]
+    sd[f"{name}.conv1.weight"] = _conv(ep["stem_conv"]["kernel"])
+    _bn(sd, f"{name}.bn1", ep["stem_bn"], eb["stem_bn"])
+    for layer, p in ep.items():
+        m = _LAYER_RE.match(layer)
         if m is None:
             continue
-        pre = f"encoder.layer{m.group(1)}.{m.group(2)}"
-        b = eb[name]
+        pre = f"{name}.layer{m.group(1)}.{m.group(2)}"
+        b = eb[layer]
         for k in (1, 2, 3):
             if f"conv{k}" in p:         # conv3/bn3: Bottleneck only
                 sd[f"{pre}.conv{k}.weight"] = _conv(p[f"conv{k}"]["kernel"])
@@ -123,11 +123,29 @@ def from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
             sd[f"{pre}.downsample.0.weight"] = _conv(p["down_conv"]["kernel"])
             _bn(sd, f"{pre}.downsample.1", p["down_bn"], b["down_bn"])
 
+
+def from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """``{"params", "batch_stats"}`` numpy tree → YNet ``state_dict``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _encoder(sd, "encoder", params, stats)
     _decoder(sd, params["decoder"], stats["decoder"])
 
     _dense(sd, "classifier.fc.0", params["classifier"]["fc"])
     _dense(sd, "regressor.fc.0", params["regressor"]["fc1"])
     _dense(sd, "regressor.fc.2", params["regressor"]["fc2"])
+    return sd
+
+
+def ensemble_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX ``MultiPatchResNet``'s ``{"params", "batch_stats"}`` numpy
+    tree → :class:`~wsiseg_tpu_torch.models.ensemble.MultiPatchResNet`
+    ``state_dict``."""
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    _encoder(sd, "trunk", params, variables["batch_stats"])
+    for name in ("fc0", "fc_1", "fc_2"):
+        _dense(sd, name, params[name])
     return sd
 
 
@@ -150,13 +168,16 @@ def optimizer_state_from_flax(opt_state, variables: Mapping, model,
     (``ScaleByAdamState``) and adabound (``AdaBoundState``) become
     ``exp_avg``, ``exp_avg_sq`` and ``step``; sgd's ``TraceState.trace``
     becomes ``momentum_buffer``. ``variables`` are the matching
-    ``{"params", "batch_stats"}`` (the state's parameter trees are mapped
-    by the same names as the parameters)."""
+    ``{"params", "batch_stats"}`` of a Y-Net or, with a ``trunk``, of the
+    HR ensemble (the state's parameter trees are mapped by the same names
+    as the parameters)."""
     names = [n for n, _ in model.named_parameters()]
+    convert = (ensemble_from_flax if "trunk" in variables["params"]
+               else from_flax)
 
     def by_name(tree) -> List[torch.Tensor]:
-        sd = from_flax({"params": tree,
-                        "batch_stats": variables["batch_stats"]})
+        sd = convert({"params": tree,
+                      "batch_stats": variables["batch_stats"]})
         return [sd[n] for n in names]
 
     per_param = [dict() for _ in names]

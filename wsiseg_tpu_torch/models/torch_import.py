@@ -12,7 +12,8 @@ so no conversion is needed, only routing:
 * a checkpoint with ``encoder.``/``decoder.``/``segmentation_head.``
   keys is a whole reference model and loads into the whole Y-Net;
 * plain torchvision names (``conv1.*``, ``bn1.*``, ``layer*``) load into
-  ``encoder``, and ``fc.*`` (ImageNet's classifier) is dropped.
+  the encoder (``encoder``; the HR ensemble's ``trunk``), and ``fc.*``
+  (ImageNet's classifier) is dropped.
 
 ``module.`` prefixes are stripped, every loaded leaf's shape is checked
 against the model's, and keys the checkpoint lacks keep their initial
@@ -54,9 +55,11 @@ def load_pretrained(path: str) -> Dict[str, torch.Tensor]:
             for k, v in raw.items()}
 
 
-def _routed(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Checkpoint keys → the Y-Net's keys, BatchNorm's batch counters
-    and torchvision's ``fc`` left out."""
+def _routed(sd: Mapping[str, torch.Tensor],
+            encoder_name: str) -> Dict[str, torch.Tensor]:
+    """Checkpoint keys → the model's keys (torchvision's under
+    ``encoder_name``), BatchNorm's batch counters and torchvision's ``fc``
+    left out."""
     full = any(k.startswith(("encoder.", "decoder.", "segmentation_head."))
                for k in sd)
     out = {}
@@ -66,16 +69,17 @@ def _routed(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         if full:
             out[k] = v
         elif _ENCODER_RE.match(k):
-            out["encoder." + k] = v
+            out[f"{encoder_name}.{k}"] = v
     return out
 
 
 @torch.no_grad()
-def graft(model: nn.Module, sd: Mapping[str, torch.Tensor]) -> nn.Module:
+def graft(model: nn.Module, sd: Mapping[str, torch.Tensor],
+          encoder_name: str = "encoder") -> nn.Module:
     """Copy the checkpoint ``sd`` into ``model`` in place (see the module
     docstring for the routing and the checks). Returns ``model``."""
     own = model.state_dict()
-    routed = _routed(sd)
+    routed = _routed(sd, encoder_name)
     dec_missed = [k for k in routed if k.startswith("decoder.")
                   and k not in own]
     if dec_missed:
@@ -91,8 +95,7 @@ def graft(model: nn.Module, sd: Mapping[str, torch.Tensor]) -> nn.Module:
                       f"{dec_missed[:3]}", stacklevel=2)
     for k, v in routed.items():
         if k not in own:
-            if k.startswith("encoder.") and _ENCODER_RE.match(
-                    k[len("encoder."):]):
+            if _ENCODER_RE.match(k.split(".", 1)[-1]):
                 raise KeyError(f"checkpoint key {k} not in the model")
             continue
         if tuple(own[k].shape) != tuple(v.shape):
@@ -103,7 +106,9 @@ def graft(model: nn.Module, sd: Mapping[str, torch.Tensor]) -> nn.Module:
     return model
 
 
-def apply_pretrained(model: nn.Module, path: str) -> nn.Module:
+def apply_pretrained(model: nn.Module, path: str,
+                     encoder_name: str = "encoder") -> nn.Module:
     """Graft the pretrained torch weights at ``path`` into ``model`` (the
-    trainers' ``cfg.pretrained_pth``)."""
-    return graft(model, load_pretrained(path))
+    trainers' ``cfg.pretrained_pth``), torchvision names into
+    ``encoder_name``."""
+    return graft(model, load_pretrained(path), encoder_name)

@@ -101,10 +101,11 @@ class FlaxBatchNorm(nn.Module):
     """Inference BatchNorm as flax applies it to an input in a low
     precision: ``(x - mean) · scale/sqrt(var + eps) + bias`` in f32 (the
     statistics are f32, so flax's arithmetic promotes), the result rounded
-    to the input's dtype."""
+    to ``dtype`` (flax's ``norm_dtype``; default: the input's dtype)."""
 
-    def __init__(self, bn: nn.BatchNorm2d):
+    def __init__(self, bn: nn.BatchNorm2d, dtype=None):
         super().__init__()
+        self.dtype = dtype
         with torch.no_grad():
             self.register_buffer("mean", bn.running_mean.float().view(
                 1, -1, 1, 1).clone())
@@ -115,7 +116,8 @@ class FlaxBatchNorm(nn.Module):
                 1, -1, 1, 1).clone())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return ((x.float() - self.mean) * self.mul + self.bias).to(x.dtype)
+        return ((x.float() - self.mean) * self.mul + self.bias).to(
+            self.dtype or x.dtype)
 
 
 @torch.no_grad()
@@ -147,7 +149,15 @@ def init_ynet(cfg: Config, generator: torch.Generator) -> YNet:
     """A Y-Net with random weights drawn from ``generator`` only (flax's
     defaults: LeCun-normal kernels, zero biases, identity BatchNorm), in
     eval mode."""
-    model = build_ynet(cfg)
+    return lecun_init(build_ynet(cfg), generator)
+
+
+@torch.no_grad()
+def lecun_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """flax's default init of every conv and linear of ``model`` in
+    place, drawn from ``generator`` (truncated LeCun-normal kernels, zero
+    biases; BatchNorm keeps torch's identity init). Returns the model in
+    eval mode."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             # variance 1/fan_in after truncation at ±2σ (the constant is

@@ -9,7 +9,8 @@ instead of the reference's boolean indexing (``encoding[0][is_cls]``,
 train_cellularity.py:87).
 Metrics are 0-dim device tensors: reading them is the caller's sync.
 
-Batches are dicts of tensors on the model's device:
+Batches are dicts of tensors on the model's device (the HR ensemble's:
+``image`` (B, P, H, W, 3) and ``cls_label``, :func:`make_hr_train_step`):
   image      (B, H, W, 3) float, already normalized (channels last: the
              step reads it as an NCHW view in ``channels_last`` memory)
   seg_label  (B, H, W) int        (zeros where not seg)
@@ -184,6 +185,28 @@ def make_cls_train_step(model, cfg: Config, class_weights=None,
         w = torch.ones_like(out[:, 0]) if w is None else w.to(out.dtype)
         correct = (out.argmax(-1) == labels).to(out.dtype)
         acc = (correct * w).sum() / torch.clamp(w.sum(), min=1e-8)
+        return total, {"loss": total, "acc": acc}
+
+    return _make_update(loss_fn, cfg, grad_accum)
+
+
+def make_hr_train_step(model, cfg: Config, class_weights=None,
+                       grad_accum: Optional[int] = None) -> Callable:
+    """Multi-patch region-ensemble step (train_hr.py:58-68): class-weighted
+    cross entropy on the ensemble logits, and their accuracy. The batch's
+    ``image`` is (B, P, H, W, 3) normalized, ``cls_label`` (B,). ``fc0``
+    (the per-patch head) gets a zero grad, as in JAX, where the loss does
+    not reach it."""
+    dev = next(model.parameters()).device
+    class_weights = _on(class_weights, dev)
+
+    def loss_fn(batch: Batch):
+        with autocast(cfg, dev):
+            _, ens = model(batch["image"])
+        labels = batch["cls_label"]
+        total = losses.cross_entropy(ens, labels,
+                                     class_weights=class_weights)
+        acc = (ens.argmax(-1) == labels).to(ens.dtype).mean()
         return total, {"loss": total, "acc": acc}
 
     return _make_update(loss_fn, cfg, grad_accum)
