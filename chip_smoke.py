@@ -56,6 +56,11 @@ just before and read just after:
   16384×12288) with its wall split and k-means proposals GPU against
   CPU; the ``slic``, ``scannet`` and ``train-hr`` CLIs; a float64 HR
   step GPU against CPU and the full-width bf16 step;
+- the preprocess generators and paper tools (phase ``[6i]``), which
+  launch none of the kernels: every tool that runs a device op, on the
+  card and again with ``--device cpu`` at the reference's settings on a
+  4096×3072 level 2 (SLIC mode on 1024×768), the outputs compared file
+  by file;
 - ``decode_fold(use_chain=True)`` at bench geometry (the chain kernel);
 - ``conv3x3_small`` at its documented head shape (the kernel has no
   caller in the serving path; its phase is its path).
@@ -1774,6 +1779,308 @@ def phase_head(dev) -> dict:
     return counts
 
 
+TOOLS_SLIC_HW = (768, 1024)      # the SLIC mode's level 2 (see phase_tools)
+TOOLS_QUANTIZE = 8               # colours of patch-to-cls's quantization
+#: GT polygons of the tools' slide as level-2 boxes (x0, y0, x1, y1) of the
+#: bench geometry with their class (1 benign, 2 in situ, 3 invasive): some
+#: wider than a 512 tile (k-means-split centered tiles), some smaller
+TOOLS_BOXES = [((300, 260, 1400, 1100), 3), ((1800, 400, 2500, 900), 2),
+               ((2900, 300, 3300, 700), 3), ((500, 1600, 1200, 2300), 1),
+               ((1600, 1700, 3600, 2800), 3), ((3700, 2500, 3950, 2900), 2)]
+
+
+def _tools_xml(pth: str, scale: float) -> None:
+    """An Aperio XML of TOOLS_BOXES as level-0 polygons (level-2 box ×
+    16 × ``scale``, for a level 2 ``scale`` × 4096 wide; the first corner
+    cut, so hulls and perimeters are not all axis-aligned)."""
+    text = {1: "benign", 2: "carcinoma in situ", 3: "invasive carcinoma"}
+    regions = []
+    for (x0, y0, x1, y1), cls in TOOLS_BOXES:
+        x0, y0, x1, y1 = (int(16 * scale * v) for v in (x0, y0, x1, y1))
+        cut = (x1 - x0) // 3
+        pts = [(x0 + cut, y0), (x1, y0), (x1, y1), (x0, y1), (x0, y0 + cut)]
+        regions.append(
+            f'<Region Text="{text[cls]}"><Attributes><Attribute Value='
+            f'"{text[cls]}"/></Attributes><Vertices>' + "".join(
+                f'<Vertex X="{x}" Y="{y}"/>' for x, y in pts)
+            + "</Vertices></Region>")
+    with open(pth, "w") as f:
+        f.write('<?xml version="1.0"?><Annotations MicronsPerPixel="0.25">'
+                "<Annotation><Dummy/><Regions>" + "".join(regions)
+                + "</Regions></Annotation></Annotations>")
+
+
+def _same_value(a, b, ra: str, rb: str, where: str) -> None:
+    """Equal nested store values; strings under ``ra`` read relative to
+    it (against ``rb``), arrays exactly equal in dtype and value."""
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and list(a) == list(b), where
+        for k in a:
+            _same_value(a[k], b[k], ra, rb, f"{where}[{k!r}]")
+    elif isinstance(a, np.ndarray):
+        assert isinstance(b, np.ndarray) and a.dtype == b.dtype, where
+        assert np.array_equal(a, b), where
+    elif isinstance(a, str) and a.startswith(ra):
+        assert b == rb + a[len(ra):], (where, a, b)
+    else:
+        assert type(a) is type(b) and a == b, (where, a, b)
+
+
+def _same_tree(a: str, b: str, roots=None) -> int:
+    """The files under ``a`` and ``b`` (recursively): the same names, PNGs
+    pixel-equal, ``gt.npy`` stores equal (paths relative to ``roots``,
+    default ``a`` and ``b``). Returns the number of files."""
+    from wsiseg_tpu_torch.data import metadata as md
+
+    def files(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, fs in os.walk(root) for f in fs)
+
+    names = files(a)
+    assert names == files(b), (a, b)
+    for f in names:
+        pa, pb = os.path.join(a, f), os.path.join(b, f)
+        if f.endswith(".png"):
+            ia, ib = np.asarray(Image.open(pa)), np.asarray(Image.open(pb))
+            assert ia.dtype == ib.dtype and ia.shape == ib.shape, f
+            same = (ia == ib).mean()
+            assert same == 1.0, f"{f}: {same:.6f} of values equal"
+        elif f.endswith("gt.npy"):
+            _same_value(md.load_store(pa), md.load_store(pb),
+                        *(roots or (a, b)), f)
+    return len(names)
+
+
+def phase_tools(dev, tmp: str, smi: str) -> dict:
+    """The preprocess generators and the paper tools at the reference's
+    settings (tile 512, scan level 2, ``us_kmeans`` 8 for CC proposals and
+    4 for SLIC's, 200 SLIC segments, the 30×30 and 50×50 openings), each
+    run on the card (its default device) and again with ``--device cpu``
+    into another directory, then the two outputs compared: the same
+    files, PNGs pixel-equal, ``gt.npy`` stores equal, printed lines equal.
+    They launch none of the port's kernels (JAX's tools reach no Pallas
+    kernel either): every launch count is 0 before and after.
+
+    The slide is the bench geometry's level 2 (4096×3072, a
+    ``SyntheticSlide`` image: tissue blobs on clean white, so its tissue
+    mask has a few components, where the bench image's background noise
+    gives thousands; six annotated regions), a ``VirtualPyramidSlide`` as
+    in phase ``[6h]`` d: a materialized level 0 would take 9.7 GB. The
+    tools open it by path through a stand-in ``open_slide`` that hands out
+    that pyramid; the file is a placeholder. Two cuts, both host loops the
+    JAX tools share: the SLIC mode runs on a 1024×768 level 2 (the same
+    image and layout scaled by 1/4), as it builds a full-size mask a
+    superpixel (ROADMAP.md §2, speed item 1; 0.28 s a region at
+    4096×3072); ``closest-regionproposal`` reads ``mk-gt``'s class mask
+    resized to 256×192, as its k-NN concave hull walks every perimeter
+    pixel at full resolution, quadratic in their count. The CPU run gets the card's SLIC labels, so the store
+    compares the rest exactly; the labels themselves, GPU against CPU,
+    must agree on ≥ 99.9 % of pixels.
+
+    Tools: ``preprocess mk-gt``, ``centered``, ``no-tumors``,
+    ``region-proposal-points --mode cc`` and ``--mode slic``,
+    ``breastpathq-cells`` (four 512² crop/dot pairs), ``patch-to-cls``'s
+    BreastPathQ flavor with TOOLS_QUANTIZE-colour quantization (four 512²
+    patches; the CLI does not quantize, so its library function),
+    ``overlay-tb`` and ``check-fp`` on heatmaps at the eval's heatmap size
+    (2048×1536) and ``closest-regionproposal``."""
+    import contextlib
+    import io
+
+    from wsiseg_tpu_torch.__main__ import main
+    from wsiseg_tpu_torch.config import default_config
+    from wsiseg_tpu_torch.ops import slic as slic_mod
+    from wsiseg_tpu_torch.paper_tools import overlay_tb_wsi
+    from wsiseg_tpu_torch.preprocess import (mk_gt, mk_traindata_centered,
+                                             mk_traindata_no_tumors,
+                                             patch_to_cls,
+                                             region_proposal_points)
+    from wsiseg_tpu_torch.slides.reader import (SyntheticSlide,
+                                                VirtualPyramidSlide)
+
+    reset_counts()
+    t_phase = time.time()
+    root = os.path.join(tmp, "tools")
+    hh, ww = BENCH_HW
+    l2 = SyntheticSlide(width=ww, height=hh, num_levels=1,
+                        seed=95).read_level(0)
+    sh, sw = TOOLS_SLIC_HW
+    l2s = np.array(Image.fromarray(l2).resize((sw, sh)))
+    pyramids = {"11.npy": VirtualPyramidSlide({2: l2}),
+                "31.npy": VirtualPyramidSlide({2: l2s})}
+    for tag in ("gpu", "cpu"):
+        for d, name, scale in (("wsi", "11", ww / 4096),
+                               ("slic", "31", sw / 4096)):
+            os.makedirs(os.path.join(root, tag, d))
+            np.save(os.path.join(root, tag, d, name + ".npy"),
+                    np.zeros((1, 1, 3), np.uint8))
+            _tools_xml(os.path.join(root, tag, d, name + ".xml"), scale)
+    # BreastPathQ patches + labels, and crops + dot masks (512², the
+    # dataset's size)
+    r = np.random.RandomState(96)
+    bpq, cells = os.path.join(root, "bpq"), os.path.join(root, "cells")
+    os.makedirs(bpq)
+    os.makedirs(cells)
+    rows = ["slide,rid,y"]
+    for i in range(4):
+        img = level2_image(512, 512, seed=97 + i)
+        Image.fromarray(img).save(os.path.join(bpq, f"{i + 1}_1.tif"))
+        rows.append(f"{i + 1},1,{r.rand():.3f}")
+        Image.fromarray(img).save(os.path.join(
+            cells, f"{i + 1}_Region 1_crop.tif"))
+        dots = np.full((512, 512, 3), 255, np.uint8)
+        for y, x in r.randint(0, 512, (60, 2)):
+            dots[y, x] = 0
+        Image.fromarray(dots).save(os.path.join(
+            cells, f"{i + 1}_Region 1_mask.tif"))
+    with open(os.path.join(bpq, "labels.csv"), "w") as f:
+        f.write("\n".join(rows))
+
+    seen = {}
+
+    def slic_on(tag):
+        def run(img, **kw):
+            lab = real_slic(img, **kw)
+            seen[tag] = lab.cpu()
+            return lab if tag == "gpu" else seen["gpu"].clone()
+        return run
+
+    def opener(pth):
+        return pyramids[os.path.basename(pth)]
+
+    real_slic = slic_mod.slic
+    mods = (mk_gt, mk_traindata_centered, mk_traindata_no_tumors,
+            region_proposal_points, overlay_tb_wsi)
+    real_open = [m.open_slide for m in mods]
+    times = {}
+    printed = {}
+    try:
+        for m in mods:
+            m.open_slide = opener
+        for tag in ("gpu", "cpu"):
+            base = os.path.join(root, tag)
+            flag = [] if tag == "gpu" else ["--device", "cpu"]
+            device = "cuda" if tag == "gpu" else "cpu"
+            wsi = os.path.join(base, "wsi")
+            hm_dir = os.path.join(base, "heat", "0")
+            runs = [
+                ("mk-gt", lambda: main(["preprocess", "mk-gt",
+                                        "--raw_val_pth", wsi] + flag)),
+                ("centered", lambda: main(
+                    ["preprocess", "centered", "--raw_train_pth", wsi,
+                     "--train_image_pth", os.path.join(base, "centered")]
+                    + flag)),
+                ("no-tumors", lambda: main(
+                    ["preprocess", "no-tumors", "--raw_train_pth", wsi,
+                     "--train_image_pth", os.path.join(base, "normals")]
+                    + flag)),
+                ("rpp-cc", lambda: main(
+                    ["preprocess", "region-proposal-points", "--mode", "cc",
+                     "--raw_train_pth", wsi, "--train_hr_image_pth",
+                     os.path.join(base, "hr_cc")] + flag)),
+                ("rpp-slic", lambda: region_proposal_points.generate_slic(
+                    os.path.join(base, "slic"),
+                    os.path.join(base, "hr_slic"), default_config(),
+                    num_segments=200, device=device)),
+                ("breastpathq-cells", lambda: main(
+                    ["preprocess", "breastpathq-cells", "--patch_folder",
+                     cells, "--train_image_pth", os.path.join(base, "cells")]
+                    + flag)),
+                ("patch-to-cls", lambda: patch_to_cls.generate_breastpathq(
+                    bpq, os.path.join(bpq, "labels.csv"),
+                    os.path.join(base, "cls"), default_config(),
+                    quantize_colors=TOOLS_QUANTIZE, device=device)),
+                ("overlay-tb", lambda: main(
+                    ["overlay-tb", "11", "--raw_val_pth", wsi,
+                     "--val_save_pth", os.path.dirname(hm_dir),
+                     "--out_dir", os.path.join(base, "overlay")] + flag)),
+                ("check-fp", lambda: main(
+                    ["check-fp", "--raw_val_pth",
+                     os.path.join(base, "screen"), "--val_save_pth",
+                     os.path.join(base, "screen_heat")] + flag)),
+                ("closest-regionproposal", lambda: main(
+                    ["closest-regionproposal",
+                     os.path.join(base, "gt_256x192.png")] + flag)),
+            ]
+            slic_mod.slic = slic_on(tag)
+            for name, fn in runs:
+                if name == "overlay-tb":
+                    _tools_heatmaps(base, hm_dir)
+                    os.makedirs(os.path.join(base, "overlay"))
+                if name == "closest-regionproposal":
+                    Image.open(os.path.join(wsi, "11.npy_mask.png")).resize(
+                        (256, 192), Image.NEAREST).save(
+                            os.path.join(base, "gt_256x192.png"))
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    _, ms = _host_ms(fn)
+                times.setdefault(name, {})[tag] = ms / 1e3
+                printed.setdefault(name, {})[tag] = out.getvalue().replace(
+                    os.path.join(root, tag), "<root>")
+    finally:
+        slic_mod.slic = real_slic
+        for m, f in zip(mods, real_open):
+            m.open_slide = f
+    gpu, cpu = os.path.join(root, "gpu"), os.path.join(root, "cpu")
+    n_files = _same_tree(gpu, cpu)
+    for name, out in printed.items():
+        assert out["gpu"] == out["cpu"], (name, out)
+    slic_eq = (seen["gpu"] == seen["cpu"]).float().mean().item()
+    assert slic_eq >= 0.999, f"SLIC labels GPU vs CPU: {slic_eq}"
+    counts = read_counts()
+    assert sum(counts.values()) == 0, f"tools launched kernels: {counts}"
+    from wsiseg_tpu_torch.data import metadata as md
+    stores = {k: md.load_store(os.path.join(gpu, k))
+              for k in ("centered", "normals", "hr_cc", "hr_slic", "cls")}
+    sizes = {"centered": sum(len(v) for v in stores["centered"].values()),
+             "normals": sum(len(v) for v in stores["normals"].values()),
+             "hr_cc": len(stores["hr_cc"]["11.npy"]),
+             "hr_slic": len(stores["hr_slic"]["31.npy"][0]),
+             "cls": sum(len(v) for v in stores["cls"].values())}
+    assert all(v > 0 for v in sizes.values()), sizes
+    assert printed["closest-regionproposal"]["gpu"].count("nearest") >= 2
+    for name, t in times.items():
+        print(f"[6i] {name}: GPU {t['gpu']:.3f} s, CPU {t['cpu']:.3f} s "
+              f"wall | {smi}", flush=True)
+    print(f"[6i] tools on a 4096x3072 level 2 (SLIC mode: 1024x768): GPU "
+          f"== CPU on {n_files} files (PNGs pixel-equal, stores equal), "
+          f"printed lines equal; records {sizes}; SLIC labels GPU vs CPU "
+          f"{slic_eq:.6f} equal (limit 0.999); 0 kernel launches; "
+          f"{time.time() - t_phase:.1f} s | {smi}", flush=True)
+    return {"tool_s": times, "slic_eq": slic_eq, "records": sizes}
+
+
+def _tools_heatmaps(base: str, hm_dir: str) -> None:
+    """Heatmaps at the eval's heatmap size (half of level 2, 2048×1536):
+    ``11``'s hot where ``mk-gt``'s mask is malignant, with noise and
+    specks; a screening set ``21``–``24`` (stub slides; 21 and 22
+    annotated; 21 and 23 hot) for ``check-fp``."""
+    mask = np.asarray(Image.open(os.path.join(base, "wsi",
+                                              "11.npy_mask.png")))
+    r = np.random.RandomState(98)
+    h, w = mask.shape[0] // 2, mask.shape[1] // 2
+    hot = mask[::2, ::2] >= 2
+    heat = np.where(hot, 250, r.randint(0, 200, (h, w))).astype(np.uint8)
+    heat[r.rand(h, w) < 0.002] = 255
+    os.makedirs(hm_dir)
+    Image.fromarray(heat).save(os.path.join(hm_dir, "11.npy_32_heatmap.png"))
+    screen, sheat = (os.path.join(base, "screen"),
+                     os.path.join(base, "screen_heat", "0"))
+    os.makedirs(screen)
+    os.makedirs(sheat)
+    for sid in (21, 22, 23, 24):
+        np.save(os.path.join(screen, f"{sid}.npy"), np.zeros((1, 1, 3),
+                                                              np.uint8))
+        if sid in (21, 22):
+            with open(os.path.join(screen, f"{sid}.xml"), "w") as f:
+                f.write("<Annotations/>")
+        hm = r.randint(0, 240, (h, w)).astype(np.uint8)
+        if sid in (21, 23):
+            hm[h // 4:h // 2, w // 4:w // 2] = 255
+        Image.fromarray(hm).save(os.path.join(sheat,
+                                              f"{sid}.npy_32_heatmap.png"))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1799,6 +2106,7 @@ def main() -> None:
         phase_patch_evals(dev, tmp)
         phase_train(dev, tmp, smi)
         phase_hr(dev, tmp, smi)
+        phase_tools(dev, tmp, smi)
     routes = phase_routes(dev)
     chain = phase_fold_chain(dev)
     head = phase_head(dev)

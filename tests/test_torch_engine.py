@@ -221,9 +221,11 @@ def test_cli_eval_tumorbed_writes_heatmap(tmp_path):
 
 
 def test_unported_command_points_at_roadmap():
+    """Every command of the JAX package is ported; a name neither package
+    has is refused with a pointer to what ROADMAP.md lists."""
     from wsiseg_tpu_torch.__main__ import main
     with pytest.raises(SystemExit, match="ROADMAP"):
-        main(["preprocess"])
+        main(["no-such-command"])
 
 
 def test_writers_match_jax(cfg, tmp_path):

@@ -15,6 +15,7 @@ that each microbatch's deepest BatchNorm sees 4·4 values per channel),
 batch 2; the datasets and CLIs at the reference's 16 patches of 64²."""
 
 import contextlib
+import copy
 import os
 
 import jax
@@ -34,6 +35,7 @@ from wsiseg_tpu_torch.__main__ import main
 from wsiseg_tpu_torch.config import default_config
 from wsiseg_tpu_torch.data import regions as treg
 from wsiseg_tpu_torch.data.bench_slide import level2_image
+from wsiseg_tpu_torch.models import ensemble
 from wsiseg_tpu_torch.models.ensemble import (MultiPatchResNet,
                                               compute_copy)
 from wsiseg_tpu_torch.models.flax_import import (ensemble_from_flax,
@@ -44,6 +46,27 @@ torch.set_num_threads(2)
 
 REL = 1e-9                       # × max(1, |ref|), float64 both sides
 CW = np.array([0.3, 1.0, 0.6, 0.8])
+
+
+@pytest.fixture(scope="module", autouse=True)
+def shared_ensemble_init():
+    """``init_ensemble`` of one (arch, classes, generator state) once for
+    the module, a deep copy for each caller: ``lecun_init`` of ``fc_1``'s
+    33.5 M weights takes ~5 s, and ``setup_hr``, ``restore_for_eval`` and
+    the CLIs here all draw the same weights from a fresh generator of the
+    same seed. The copies are the weights a fresh draw gives."""
+    real, cache = ensemble.init_ensemble, {}
+
+    def init(cfg, generator):
+        key = (cfg.arch_encoder, cfg.num_classes,
+               bytes(generator.get_state().numpy()))
+        if key not in cache:
+            cache[key] = real(cfg, generator)
+        return copy.deepcopy(cache[key])
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ensemble, "init_ensemble", init)
+        yield
 
 
 @contextlib.contextmanager
@@ -468,10 +491,10 @@ def demo_slide(tmp_path_factory):
 def demo_checkpoint(tmp_path_factory):
     """An HR checkpoint of random weights, the ensemble's output bias
     moved to class 2 so that painted proposals show."""
-    from wsiseg_tpu_torch.models.ensemble import init_ensemble
     from wsiseg_tpu_torch.train.state import save_checkpoint
     root = str(tmp_path_factory.mktemp("demo_ck"))
-    model = init_ensemble(default_config(), torch.Generator().manual_seed(0))
+    model = ensemble.init_ensemble(default_config(),
+                                   torch.Generator().manual_seed(0))
     with torch.no_grad():
         model.fc_2.bias[2] += 30.0
     save_checkpoint(model, root, "resnet18", 0)

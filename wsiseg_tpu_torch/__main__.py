@@ -1,13 +1,13 @@
 """``python -m wsiseg_tpu_torch <command> [flags]`` — CLI dispatcher.
 
-The port serves the evaluation commands (``eval``, ``eval-tumorbed``,
-``eval-spie``), the trainers (``train``, ``train-cellularity``,
-``train-p``, ``train-ssr``, ``train-hr``) and the region-proposal demos
-(``slic``, ``scannet``); the JAX package's other commands
-(``preprocess`` and the paper tools) are still to be ported, in the order
-ROADMAP.md lists. Slide conversion
-runs as ``python -m wsiseg_tpu_torch.cli.convert_slide``, as in the JAX
-package.
+The port serves every command of the JAX package's dispatcher: the
+evaluation commands (``eval``, ``eval-tumorbed``, ``eval-spie``), the
+trainers (``train``, ``train-cellularity``, ``train-p``, ``train-ssr``,
+``train-hr``), the region-proposal demos (``slic``, ``scannet``), the
+training-data generators (``preprocess <generator>``) and the paper tools
+(``overlay-tb``, ``check-fp``, ``closest-regionproposal``). Slide
+conversion runs as ``python -m wsiseg_tpu_torch.cli.convert_slide``, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -37,6 +37,15 @@ COMMANDS = {
              "SLIC proposal demo (slic.py)"),
     "scannet": ("wsiseg_tpu_torch.cli.scannet_demo",
                 "CC proposal demo (scannet.py)"),
+    "preprocess": ("wsiseg_tpu_torch.preprocess.__main__",
+                   "training-data generators (preprocess/*.py)"),
+    "overlay-tb": ("wsiseg_tpu_torch.paper_tools.overlay_tb_wsi",
+                   "tumor-bed overlay rendering (paper_tools)"),
+    "check-fp": ("wsiseg_tpu_torch.paper_tools.check_for_false_positives",
+                 "slide-level FP screening (paper_tools)"),
+    "closest-regionproposal": (
+        "wsiseg_tpu_torch.paper_tools.closest_regionproposal",
+        "region perimeter/keypoint analysis (closest_regionproposal.py)"),
 }
 
 
@@ -51,9 +60,9 @@ def main(argv=None):
     cmd = argv[0]
     if cmd not in COMMANDS:
         raise SystemExit(
-            f"command {cmd!r} is not ported to wsiseg_tpu_torch yet (see "
-            f"ROADMAP.md, queue 1); ported: {', '.join(COMMANDS)}. "
-            "The JAX package runs it: python -m wsiseg_tpu " + cmd)
+            f"unknown command {cmd!r}; try: {', '.join(COMMANDS)} (the "
+            "JAX package's commands; ROADMAP.md, queue 1, lists what the "
+            "port still lacks)")
     return importlib.import_module(COMMANDS[cmd][0]).main(argv[1:])
 
 

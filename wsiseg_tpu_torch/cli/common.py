@@ -1,8 +1,9 @@
 """Shared CLI plumbing — counterpart of ``wsiseg_tpu/cli/common.py``:
 the Y-Net and the HR region ensemble with their optimizers and resume
 (``setup_ynet``, ``setup_hr``), the eval restore, the device-side batch
-preprocessing, the HR ensemble's serving forward, and the eval and train
-flag pre-parsers (the JAX package's flags plus ``--device``)."""
+preprocessing, the HR ensemble's serving forward, and the flag
+pre-parsers of the eval CLIs, the trainers and the preprocess and paper
+tools (the JAX package's flags plus ``--device``)."""
 
 from __future__ import annotations
 
@@ -133,14 +134,27 @@ def check_single_device(cfg: Config) -> None:
         raise NotImplementedError(f"--mesh {cfg.mesh}: {MULTI_GPU_ITEM}")
 
 
+def add_device_flag(p: argparse.ArgumentParser, where: str) -> None:
+    """``--device cpu|cuda`` on ``p``; ``where`` says what runs there. The
+    default is cuda, which raises (:func:`resolve_device`) when no CUDA
+    device is present."""
+    p.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
+                   help=f"where {where} (default cuda; raises when no CUDA "
+                        "device is present)")
+
+
+def parse_device_flag(argv, where: str):
+    """Pre-parse ``--device`` ahead of ``Config.parse_args``. Returns
+    (namespace, remaining argv)."""
+    p = argparse.ArgumentParser(add_help=False)
+    add_device_flag(p, where)
+    return p.parse_known_args(argv)
+
+
 def parse_train_flags(argv):
     """``--device`` for the trainers (default cuda; raises when no CUDA
     device is present). Returns (namespace, remaining argv)."""
-    p = argparse.ArgumentParser(add_help=False)
-    p.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
-                   help="where the model trains (default cuda; raises when "
-                        "no CUDA device is present)")
-    return p.parse_known_args(argv)
+    return parse_device_flag(argv, "the model trains")
 
 
 def parse_eval_flags(argv):
@@ -161,9 +175,7 @@ def parse_eval_flags(argv):
     p.add_argument("--slides_in_flight", type=int, default=4,
                    help="serve up to N consecutive same-geometry slides as "
                         "one batched forward; 1 disables")
-    p.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
-                   help="where the engine runs (default cuda; raises when "
-                        "no CUDA device is present)")
+    add_device_flag(p, "the engine runs")
     ns, rest = p.parse_known_args(argv)
     if ns.fcn and (ns.grid or ns.streamed or ns.sharded):
         p.error("--fcn is mutually exclusive with --grid/--streamed/"

@@ -9,10 +9,9 @@ a CUDA device the default raises ``RuntimeError``.
 
 from __future__ import annotations
 
-import argparse
 from typing import Optional, Sequence
 
-from wsiseg_tpu_torch.cli.common import restore_for_eval
+from wsiseg_tpu_torch.cli.common import parse_device_flag, restore_for_eval
 from wsiseg_tpu_torch.config import Config, parse_args
 from wsiseg_tpu_torch.infer.engine import resolve_device
 from wsiseg_tpu_torch.infer.evaluators import predict_breastpathq
@@ -30,11 +29,7 @@ def _eval(cfg: Config, out_dir: str = ".", device="cuda") -> str:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> str:
-    p = argparse.ArgumentParser(add_help=False)
-    p.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
-                   help="where the model runs (default cuda; raises when "
-                        "no CUDA device is present)")
-    ns, rest = p.parse_known_args(argv)
+    ns, rest = parse_device_flag(argv, "the model runs")
     out = _eval(parse_args(rest), device=ns.device)
     print(out)
     return out

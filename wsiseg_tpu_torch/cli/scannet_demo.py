@@ -22,7 +22,8 @@ import numpy as np
 import torch
 from PIL import Image
 
-from wsiseg_tpu_torch.cli.common import restore_for_eval, setup_hr
+from wsiseg_tpu_torch.cli.common import (add_device_flag, restore_for_eval,
+                                         setup_hr)
 from wsiseg_tpu_torch.cli.slic_demo import (SCAN_LEVEL, US, US_KMEANS,
                                             make_hr_forward)
 from wsiseg_tpu_torch.config import Config, default_config
@@ -77,10 +78,7 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
                    help="GT thumbnail PNG (defaults to "
                         "gt_thumbnails/<slide>.png next to the slide)")
     p.add_argument("--eval_model_pth", default="data/models/*")
-    p.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
-                   help="where the tissue mask, k-means and the ensemble "
-                        "run (default cuda; raises when no CUDA device is "
-                        "present)")
+    add_device_flag(p, "the tissue mask, k-means and the ensemble run")
     ns = p.parse_args(argv)
 
     resolve_device(ns.device)

@@ -22,8 +22,8 @@ import numpy as np
 import torch
 from PIL import Image
 
-from wsiseg_tpu_torch.cli.common import (make_hr_apply, restore_for_eval,
-                                         setup_hr)
+from wsiseg_tpu_torch.cli.common import (add_device_flag, make_hr_apply,
+                                         restore_for_eval, setup_hr)
 from wsiseg_tpu_torch.config import Config, default_config
 from wsiseg_tpu_torch.infer.engine import resolve_device
 from wsiseg_tpu_torch.ops.slic import mark_boundaries, slic
@@ -86,9 +86,7 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
     p.add_argument("svspth")
     p.add_argument("--eval_model_pth", default="data/models/*")
     p.add_argument("--num_segments", type=int, default=NUM_SEGMENTS)
-    p.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
-                   help="where SLIC, k-means and the ensemble run (default "
-                        "cuda; raises when no CUDA device is present)")
+    add_device_flag(p, "SLIC, k-means and the ensemble run")
     ns = p.parse_args(argv)
 
     resolve_device(ns.device)
