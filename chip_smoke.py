@@ -61,6 +61,12 @@ just before and read just after:
   card and again with ``--device cpu`` at the reference's settings on a
   4096×3072 level 2 (SLIC mode on 1024×768), the outputs compared file
   by file;
+- multi-rank (phase ``[6j]``): at world size 1 over NCCL, slide-parallel
+  FCN on a bench-geometry slide (K1) and row-striped FCN, each equal to
+  its single-device route; then ranks sharing the card over gloo: the
+  dryrun's checks 1–4 on four, and on two the f64 data-parallel hybrid
+  step against the single-device step and ``--mesh 2`` epochs of
+  ``train-cellularity``, ``train-p``, ``train-ssr`` and ``train-hr``;
 - ``decode_fold(use_chain=True)`` at bench geometry (the chain kernel);
 - ``conv3x3_small`` at its documented head shape (the kernel has no
   caller in the serving path; its phase is its path).
@@ -2081,6 +2087,125 @@ def _tools_heatmaps(base: str, hm_dir: str) -> None:
                                               f"{sid}.npy_32_heatmap.png"))
 
 
+def phase_multi(dev, tmp: str, smi: str) -> int:
+    """Multi-rank (``[6j]``). At world size 1 over NCCL, in this process,
+    at the bench geometry: slide-parallel FCN on one slide against
+    ``predict_slides_fcn`` and row-striped FCN against
+    ``predict_slide_fcn(chunk=fcn_stripe_geometry(h, w, 1))``, each
+    exactly, with s/slide beside the single-device route. Then two ranks
+    sharing the card over gloo (NCCL refuses two ranks on one device):
+    the f64 sgd hybrid step data-parallel against the single-device step
+    within 1e-9·max(1, |ref|), and one ``--mesh 2`` epoch of
+    ``train-cellularity``, ``train-p``, ``train-ssr`` and ``train-hr``;
+    and the dryrun's checks 1–4 on four ranks sharing the card. Returns the K1 launches of the world-1
+    slide-parallel run."""
+    from wsiseg_tpu_torch.config import default_config
+    from wsiseg_tpu_torch.data.wsi_tiles import plan_slide
+    from wsiseg_tpu_torch.infer.engine import (DenseInferenceEngine,
+                                               fcn_stripe_geometry)
+    from wsiseg_tpu_torch.models.ynet import init_ynet
+    from wsiseg_tpu_torch.parallel import checks
+    from wsiseg_tpu_torch.parallel.dryrun import dryrun_multichip
+    from wsiseg_tpu_torch.parallel.launch import run_ranks
+    from wsiseg_tpu_torch.parallel.mesh import make_mesh
+    from wsiseg_tpu_torch.slides import VirtualPyramidSlide
+
+    t_phase = time.time()
+    h, w = BENCH_HW
+    cfg = default_config(wsi_mask_pth="")
+    # one slide: [6j] grows the run by more than 60 s (PERF.md §6)
+    plans = [plan_slide("mp0", VirtualPyramidSlide(
+        {2: level2_image(h, w, seed=60)}, num_levels=3), cfg)]
+    engine = DenseInferenceEngine(
+        init_ynet(cfg, torch.Generator().manual_seed(0)), cfg, device=dev)
+
+    def world1(rank_dev):
+        mesh = make_mesh(devices=[rank_dev])
+        out = {}
+        for run in ("warm", "timed"):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.time()
+            sp = engine.predict_slides_fcn_sharded(plans, mesh)
+            torch.cuda.synchronize()
+            out["sp_s"] = (time.time() - t0) / len(plans)
+            out["counts"] = read_counts()
+            t0 = time.time()
+            ref = engine.predict_slides_fcn(plans)
+            torch.cuda.synchronize()
+            out["single_s"] = (time.time() - t0) / len(plans)
+        for a, b in zip(sp, ref):
+            assert np.array_equal(a.labels, b.labels), "slide-parallel labels"
+            assert np.array_equal(a.heatmap, b.heatmap), "slide-parallel heat"
+        ch, cw = fcn_stripe_geometry(h, w, 1)
+        t0 = time.time()
+        rows = engine.predict_slide_fcn_sharded_rows(plans[0], mesh)
+        torch.cuda.synchronize()
+        out["rows_s"] = time.time() - t0
+        oracle = engine.predict_slide_fcn(plans[0], chunk=(ch, cw))
+        assert np.array_equal(rows.labels, oracle.labels), "row FCN labels"
+        assert np.array_equal(rows.heatmap, oracle.heatmap), "row FCN heat"
+        out["stripe"] = (ch, cw)
+        return out
+
+    w1 = run_ranks(world1, 1, devices=[dev])
+    k1 = w1["counts"]["stem_pool_conv"]
+    assert k1 > 0, "slide-parallel serving never launched stem_pool_conv"
+    assert w1["counts"]["stem_conv"] == 0 and w1["counts"]["conv9"] == 0
+    t_w1 = time.time() - t_phase
+    print(f"[6j] a. world 1 (NCCL) at {w}x{h}: slide-parallel FCN on "
+          f"{len(plans)} slide == predict_slides_fcn (labels, heat), "
+          f"{w1['sp_s']:.4f} s/slide against {w1['single_s']:.4f} s/slide "
+          f"single-device, launches {w1['counts']}; row-striped FCN "
+          f"(stripe {w1['stripe']}) == chunked oracle, {w1['rows_s']:.3f} "
+          f"s | {smi}", flush=True)
+
+    # the dryrun at 4 ranks, as the tier-1 test runs it: at 2 (batch 4)
+    # the seed-0 Y-Net's third adam step raises the loss, on one device
+    # as on two, and JAX's "falling" heuristic fails (PERF.md §6)
+    t0 = time.time()
+    dry = dryrun_multichip(4, "cuda", devices=[dev] * 4)
+    t_dry = time.time() - t0
+    pair = [dev, dev]
+    root = os.path.join(tmp, "multi")
+    ssr_dir = os.path.join(root, "ssr")
+    os.makedirs(ssr_dir)
+    rng = np.random.RandomState(61)
+    for i in range(4):
+        Image.fromarray(level2_image(600, 600, seed=62 + i)).save(
+            os.path.join(ssr_dir, f"r{i}_image.png"))
+        gt = np.zeros((600, 600, 3), np.uint8)
+        gt[:300, :, rng.randint(3)] = 255
+        Image.fromarray(gt).save(os.path.join(ssr_dir, f"r{i}_gt.png"))
+    npy = os.path.join(root, "hr_slide.npy")
+    level0 = np.full((4096, 4096, 3), 240, np.uint8)
+    level0[512:3584, 512:3584] = rng.randint(60, 200, (3072, 3072, 3))
+    np.save(npy, level0)
+    store = _hr_store(os.path.join(root, "store"), npy, 7)
+    ynet_store = _train_store(os.path.join(root, "ynet"), 8, 32, 4)
+    t0 = time.time()
+    card = run_ranks(checks.card_training_cases, 2, devices=pair,
+                     args=(ynet_store, ssr_dir, store,
+                           os.path.join(root, "ck")))
+    t_card = time.time() - t0
+    assert card["hybrid_f64"] <= 1e-9, \
+        f"DP f64 step != single-device step: {card['hybrid_f64']}"
+    for k in ("train_cellularity", "train_p", "train_ssr", "train_hr"):
+        assert [r["epoch"] for r in card[k]] == [1], (k, card[k])
+        assert np.isfinite(card[k][0]["loss"]), (k, card[k])
+    print(f"[6j] b. ranks sharing the card (gloo): dryrun(4) checks 1-4 OK "
+          f"(losses {[round(x, 4) for x in dry['losses']]}, step 1 rel "
+          f"{dry['step1_rel']:.3g}) in {t_dry:.1f} s; DP f64 sgd hybrid "
+          f"step vs single-device rel {card['hybrid_f64']:.3g}; --mesh 2 "
+          f"epoch losses: " + ", ".join(
+              f"{k} {card[k][0]['loss']:.4f}" for k in (
+                  "train_cellularity", "train_p", "train_ssr", "train_hr"))
+          + f", in {t_card:.1f} s; "
+          f"[6j] {time.time() - t_phase:.1f} s (world 1: {t_w1:.1f} s) | "
+          f"{smi}", flush=True)
+    return k1
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2107,11 +2232,12 @@ def main() -> None:
         phase_train(dev, tmp, smi)
         phase_hr(dev, tmp, smi)
         phase_tools(dev, tmp, smi)
+        multi = phase_multi(dev, tmp, smi)
     routes = phase_routes(dev)
     chain = phase_fold_chain(dev)
     head = phase_head(dev)
     launches = {"stem_pool_conv": default["stem_pool_conv"] + families
-                + routes["stem_pool_conv"] + eval_cli + eval_full,
+                + routes["stem_pool_conv"] + eval_cli + eval_full + multi,
                 "stem_conv": fold["stem_conv"] + routes["stem_conv"],
                 "conv9": fold["conv9"] + routes["conv9"],
                 "conv_chain": chain["conv_chain"],

@@ -279,18 +279,20 @@ def test_cli_defaults_to_cuda(tmp_path):
 
 @pytest.mark.parametrize("what", ["sharded"])
 def test_unported_routes_raise(cfg, what):
-    """What the port still lacks raises and names its ROADMAP item: the
-    sharded routes (Multi-GPU). (Pretrained grafting is ported:
-    tests/test_torch_train_data.py.)"""
+    """What the port still lacks raises and names its ROADMAP item: a
+    sharded run over a data × spatial mesh ("Multi-GPU, spatial"). (The
+    data-parallel sharded routes are ported:
+    tests/test_torch_sharded_inference.py.)"""
     from wsiseg_tpu_torch.cli.eval_tumorbed import main
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--sharded", "--raw_val_pth", "/nonexistent"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.*spatial"):
+        main(["--sharded", "--mesh", "2x2", "--device", "cpu",
+              "--raw_val_pth", "/nonexistent"])
 
 
 def test_port_imports_no_jax():
     """Importing every module of the port, chip_smoke and every module
     chip_smoke imports inside its phases loads nothing of the JAX package
-    and no JAX library."""
+    and no JAX library; nor does a rank that ``parallel.launch`` spawns."""
     code = (
         "import ast, importlib, pkgutil, sys\n"
         "import wsiseg_tpu_torch as p\n"
@@ -305,6 +307,16 @@ def test_port_imports_no_jax():
         "        for a in n.names:\n"
         "            importlib.import_module(a.name)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
+        "('wsiseg_tpu', 'jax', 'jaxlib', 'flax', 'optax')]\n"
+        "assert not bad, bad\n"
+        "import os\n"
+        "sys.path.insert(0, os.path.abspath('tests'))\n"
+        "import torch_rank_cases\n"
+        "from wsiseg_tpu_torch.parallel import launch\n"
+        "roots = launch.run_ranks(torch_rank_cases.loaded_roots, 2, 'cpu', "
+        "threads=1)\n"
+        "assert 'wsiseg_tpu_torch' in roots, roots\n"
+        "bad = [k for k in roots if k in "
         "('wsiseg_tpu', 'jax', 'jaxlib', 'flax', 'optax')]\n"
         "assert not bad, bad\n"
         "print('ok', len([k for k in sys.modules "

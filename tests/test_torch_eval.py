@@ -589,7 +589,25 @@ def test_cuda_default_raises_without_a_card(tmp_path, cfg, port_model,
             evaluators.predict_reg(port_model, cfg, [_batch(1)])
 
 
-def test_cli_eval_sharded_names_multi_gpu():
+def test_cli_eval_sharded_names_multi_gpu(tmp_path):
+    """``eval --sharded --mesh 2`` over two gloo CPU ranks reports rank
+    0's metrics (every key, the tumor-bed IoU) and writes the color mask;
+    a data × spatial ``--mesh 2x2`` raises naming "Multi-GPU, spatial",
+    and on the CPU ``--sharded`` without ``--mesh N`` asks for it."""
     from wsiseg_tpu_torch.__main__ import main
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        main(["eval", "--sharded", "--raw_val_pth", "/nonexistent"])
+    with pytest.raises(NotImplementedError, match="Multi-GPU, spatial"):
+        main(["eval", "--sharded", "--mesh", "2x2", "--device", "cpu",
+              "--raw_val_pth", "/nonexistent"])
+    slides = _npy_slide_dir(tmp_path)
+    out = tmp_path / "out"
+    with pytest.raises(ValueError, match="--mesh N"):
+        main(["eval", "--sharded", "--device", "cpu", "--raw_val_pth",
+              str(slides)])
+    res = main(["eval", "--sharded", "--mesh", "2", "--device", "cpu",
+                "--raw_val_pth", str(slides), "--eval_model_pth",
+                str(tmp_path / "none"),
+                "--val_save_pth", str(out), "--wsi_mask_pth", "",
+                "--tile_w", "64", "--tile_h", "64"])
+    assert set(res) == {"s0.npy", "_mean_tb_iou"}
+    assert {"acc", "s", "iou_fg", "iou_tb"} <= set(res["s0.npy"])
+    assert len(list(out.rglob("*.png"))) == 1

@@ -489,8 +489,15 @@ def test_grid_evaluator_stages_next_slide(cfg, port_model):
         assert res.name == name
         np.testing.assert_array_equal(res.labels,
                                       eng.predict_slide(plan).labels)
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        list(_pipelined_results(eng, coll, mesh=object()))
+    # with a mesh (a group of one rank, in this process): the psum route
+    from wsiseg_tpu_torch.parallel.launch import run_ranks
+    from wsiseg_tpu_torch.parallel.mesh import make_mesh
+    meshed = run_ranks(lambda dev: [
+        (name, res.labels) for name, _, res in _pipelined_results(
+            eng, coll, mesh=make_mesh())], 1, "cpu")
+    assert [name for name, _ in meshed] == ["s0", "s1", "s2"]
+    for (_, plan, res), (_, labels) in zip(out, meshed):
+        np.testing.assert_array_equal(labels, res.labels)
 
 
 @pytest.mark.parametrize("flag", ["--grid", "--streamed"])

@@ -235,6 +235,15 @@ def test_hr_datasets_match_jax(jax_seeded, hr_store, eval_mode):
                 np.testing.assert_array_equal(g[k], r[k])
 
 
+def test_hr_batches_keep_rank_rows(hr_store):
+    from test_torch_train_data import assert_rank_rows
+    cfg = default_config(batch_size=4)
+    assert_rank_rows(*(treg.HRRegionDataset(hr_store, cfg,
+                                            duplicate_dataset=2, seed=3,
+                                            device="cpu")
+                       for _ in range(2)))
+
+
 def test_hr_eval_dataset_and_cls_ratios_match_jax(jax_seeded, hr_store):
     from wsiseg_tpu.data.ssr import cls_ratios_hr as jax_ratios
     from wsiseg_tpu_torch.data.ssr import cls_ratios_hr
@@ -251,16 +260,21 @@ def test_hr_eval_dataset_and_cls_ratios_match_jax(jax_seeded, hr_store):
             jax_ratios(hr_store, jax_config(), ig))
 
 
-def test_ssr_cls_dataset_matches_jax(tmp_path):
-    from wsiseg_tpu.data.ssr import SSRClsDataset as JaxSSRCls
-    from wsiseg_tpu_torch.data.ssr import SSRClsDataset
+def _ssr_cls_store(root):
+    """Five 48×40 regions with labels 0-3 in a gt.npy store."""
     rng = np.random.RandomState(0)
     store = {}
     for i in range(5):
-        pth = str(tmp_path / f"r{i}.png")
+        pth = str(root / f"r{i}.png")
         Image.fromarray(rng.randint(0, 255, (48, 40, 3), np.uint8)).save(pth)
         store[f"s{i}"] = {0: {"image": pth, "label": i % 4, "times": 1}}
-    jmd.save_store(store, str(tmp_path))
+    jmd.save_store(store, str(root))
+
+
+def test_ssr_cls_dataset_matches_jax(tmp_path):
+    from wsiseg_tpu.data.ssr import SSRClsDataset as JaxSSRCls
+    from wsiseg_tpu_torch.data.ssr import SSRClsDataset
+    _ssr_cls_store(tmp_path)
     for ev in (False, True):
         kw = dict(batch_size=3, tile_w=32, tile_h=32)
         ref = JaxSSRCls(str(tmp_path), jax_config(**kw), eval=ev, seed=2)
@@ -270,6 +284,14 @@ def test_ssr_cls_dataset_matches_jax(tmp_path):
         for g, r in zip(got.batches(), ref.batches()):
             for k in r:
                 np.testing.assert_array_equal(g[k], r[k])
+
+
+def test_ssr_cls_batches_keep_rank_rows(tmp_path):
+    from test_torch_train_data import assert_rank_rows
+    from wsiseg_tpu_torch.data.ssr import SSRClsDataset
+    _ssr_cls_store(tmp_path)
+    assert_rank_rows(*(SSRClsDataset(str(tmp_path), default_config(
+        batch_size=3, tile_w=32, tile_h=32), seed=2) for _ in range(2)))
 
 
 def test_validate_hr_matches_jax(jax_seeded, hr_store):

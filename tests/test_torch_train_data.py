@@ -116,6 +116,33 @@ def test_patch_batches_equal_jax(store, drop):
     _assert_batches_equal(list(ev_t.batches()), list(ev_j.batches()))
 
 
+def assert_rank_rows(full_ds, part_ds, epochs=2, **kw):
+    """``part_ds.batches(rows=odd rows, **kw)`` yields the odd rows of
+    each of ``full_ds.batches(**kw)`` (two datasets built alike), epoch
+    after epoch: a data-parallel rank decodes only its rows and draws
+    every row's rotation, so its rows are the single device's."""
+    def keep(b):
+        return np.arange(b)[1::2]
+
+    for _ in range(epochs):
+        full = list(full_ds.batches(**kw))
+        part = list(part_ds.batches(rows=keep, **kw))
+        assert len(part) == len(full) > 0
+        for p, f in zip(part, full):
+            assert p.keys() == f.keys()
+            for k in f:
+                np.testing.assert_array_equal(p[k], f[k][keep(len(f[k]))],
+                                              err_msg=k)
+
+
+@pytest.mark.parametrize("drop", [False, True])
+def test_patch_batches_keep_rank_rows(store, drop):
+    _, tcfg = cfgs()
+    assert_rank_rows(*(patches.PatchDataset(store, tcfg, seed=3,
+                                            duplicate_dataset=2)
+                       for _ in range(2)), drop_remainder=drop)
+
+
 def test_cls_weights_equal_jax(store):
     jcfg, tcfg = cfgs()
     for kw in ({}, {"ignore_seg": True}, {"ignore_index": 0}):
@@ -146,6 +173,12 @@ def test_ssr_batches_and_ratios_equal_jax(ssr_dir):
                           list(jds.batches(batch_size=4)))
     np.testing.assert_array_equal(ssr.cls_ratios_ssr(ssr_dir, tcfg),
                                   jssr.cls_ratios_ssr(ssr_dir, jcfg))
+
+
+def test_ssr_batches_keep_rank_rows(ssr_dir):
+    _, tcfg = cfgs()
+    assert_rank_rows(*(ssr.SSRSegDataset(ssr_dir, tcfg, seed=2, duplicate=2)
+                       for _ in range(2)), batch_size=4)
 
 
 def _u8_batches(n=3, b=4, seed=0):

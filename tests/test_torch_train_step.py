@@ -122,10 +122,10 @@ def hybrid_batch(seed=3, b=4, nc=4, tile=TILE):
     }
 
 
-def run_pair(kind, jcfg, tcfg, batch, grad_accum=1, seed=0, **step_kw):
-    """One JAX step and one port step of ``kind`` ('hybrid', 'seg' or
-    'cls') from the same variables. Returns (JAX metrics, JAX new state
-    as a port state_dict, port metrics, port state_dict)."""
+def jax_step(kind, jcfg, batch, grad_accum=1, seed=0, **step_kw):
+    """One float64 JAX step of ``kind`` ('hybrid', 'seg' or 'cls') from
+    :func:`random_variables` (``seed``). Returns (the variables, JAX
+    metrics, JAX new state as a port state_dict)."""
     with jax_f64():
         model = jax_build_ynet(jcfg)
         variables = random_variables(model, seed)
@@ -147,7 +147,15 @@ def run_pair(kind, jcfg, tcfg, batch, grad_accum=1, seed=0, **step_kw):
         new, jm = jax.jit(make)(jstate, jb, jax.random.PRNGKey(5))
         ref_sd = from_flax(jax.device_get(new.variables()))
         jm = {k: float(v) for k, v in jm.items()}
+    return variables, jm, ref_sd
 
+
+def run_pair(kind, jcfg, tcfg, batch, grad_accum=1, seed=0, **step_kw):
+    """One JAX step and one port step of ``kind`` ('hybrid', 'seg' or
+    'cls') from the same variables. Returns (JAX metrics, JAX new state
+    as a port state_dict, port metrics, port state_dict)."""
+    variables, jm, ref_sd = jax_step(kind, jcfg, batch, grad_accum, seed,
+                                     **step_kw)
     net = build_ynet(tcfg).double()
     net.load_state_dict(from_flax(variables))
     state = TrainState(net, build_optimizer(tcfg, net.parameters()))

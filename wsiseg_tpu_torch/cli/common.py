@@ -1,21 +1,25 @@
 """Shared CLI plumbing — counterpart of ``wsiseg_tpu/cli/common.py``:
 the Y-Net and the HR region ensemble with their optimizers and resume
 (``setup_ynet``, ``setup_hr``), the eval restore, the device-side batch
-preprocessing, the HR ensemble's serving forward, and the flag
-pre-parsers of the eval CLIs, the trainers and the preprocess and paper
-tools (the JAX package's flags plus ``--device``)."""
+preprocessing, the HR ensemble's serving forward, the meshes of
+``--mesh`` and ``--sharded`` with the spawning of their ranks, and the
+flag pre-parsers of the eval CLIs, the trainers and the preprocess and
+paper tools (the JAX package's flags plus ``--device``)."""
 
 from __future__ import annotations
 
 import argparse
-from typing import Callable, Dict, Tuple
+import os
+import types
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from wsiseg_tpu_torch.config import Config
 from wsiseg_tpu_torch.data.patches import normalize_batch_images
-from wsiseg_tpu_torch.infer.engine import MULTI_GPU_ITEM, resolve_device
+from wsiseg_tpu_torch.infer.engine import SPATIAL_ITEM, resolve_device
 from wsiseg_tpu_torch.models import ensemble
 from wsiseg_tpu_torch.models.torch_import import apply_pretrained
 from wsiseg_tpu_torch.models.ynet import YNet, init_ynet
@@ -92,17 +96,24 @@ def restore_for_eval(cfg: Config, setup=setup_ynet):
 
 
 def make_preprocess(cfg: Config, train: bool = True) -> Callable:
-    """``fn(batch, generator)``: the batch's u8 images → normalized float
-    on their device, with the train jitter drawn from ``generator`` when
-    ``train``. An HR batch's (B, P, H, W, 3) patches are normalized as
-    B·P images (B·P jitter draws)."""
+    """``fn(batch, generator, rows=None)``: the batch's u8 images →
+    normalized float on their device, with the train jitter drawn from
+    ``generator`` when ``train``. An HR batch's (B, P, H, W, 3) patches
+    are normalized as B·P images (B·P jitter draws). ``rows = (n, index)``
+    marks the batch as rows ``index`` of an n-row global batch
+    (:func:`~wsiseg_tpu_torch.data.patches.normalize_batch_images`)."""
 
-    def preprocess(batch: Dict, generator=None) -> Dict:
+    def preprocess(batch: Dict, generator=None, rows=None) -> Dict:
         out = dict(batch)
         img = batch["image"]
         flat = img.reshape(-1, *img.shape[-3:])
+        if rows is not None and img.ndim == 5:
+            p = img.shape[1]
+            idx = (rows[1][:, None] * p + torch.arange(
+                p, device=rows[1].device)).reshape(-1)
+            rows = (rows[0] * p, idx)
         out["image"] = normalize_batch_images(
-            flat, cfg, generator, train=train).reshape(img.shape)
+            flat, cfg, generator, train=train, rows=rows).reshape(img.shape)
         return out
 
     return preprocess
@@ -127,11 +138,72 @@ def make_hr_apply(model, cfg: Config, device="cuda") -> Callable:
     return apply
 
 
-def check_single_device(cfg: Config) -> None:
-    """``--mesh`` asks for training over several devices, which waits for
-    the Multi-GPU item (JAX ``make_train_mesh``)."""
-    if cfg.mesh and cfg.mesh not in ("none", "0", "1"):
-        raise NotImplementedError(f"--mesh {cfg.mesh}: {MULTI_GPU_ITEM}")
+def mesh_ranks(spec: str, device="cuda") -> int:
+    """The ranks a ``--mesh`` value asks for (JAX ``make_train_mesh``):
+    ``""``, ``none``, ``0`` and ``1`` one device; ``all`` every visible
+    card (on ``cuda`` only: the CPU's ranks are given as ``N``); ``N`` N
+    ranks. ``NxM`` (data × spatial) raises ``NotImplementedError``."""
+    spec = (spec or "").strip().lower()
+    if spec in ("", "none", "0", "1"):
+        return 1
+    if "x" in spec:
+        raise NotImplementedError(
+            f"--mesh {spec}: spatial training (data × space) is "
+            f"{SPATIAL_ITEM}")
+    if spec == "all":
+        if torch.device(device).type != "cuda":
+            raise ValueError("--mesh all counts the visible cards; with "
+                             "--device cpu give the gloo ranks as --mesh N")
+        return torch.cuda.device_count()
+    return int(spec)
+
+
+def _mesh_of(cfg: Config, n: int, device):
+    from wsiseg_tpu_torch.parallel.mesh import make_mesh
+    if dist.get_world_size() != n:
+        raise ValueError(f"--mesh asks for {n} ranks; the process group "
+                         f"has {dist.get_world_size()}")
+    return make_mesh(devices=[resolve_device(device)] * n, shape=(n,),
+                     axes=(cfg.mesh_axes[0],))
+
+
+def make_train_mesh(cfg: Config, n: int, device="cuda"):
+    """The trainers' data mesh over this process group's ``n`` ranks
+    (:func:`mesh_ranks`), each on ``device``; None for one device."""
+    return None if n <= 1 else _mesh_of(cfg, n, device)
+
+
+def make_eval_mesh(cfg: Config, n: int, device="cuda"):
+    """``--sharded``'s mesh over this process group's ``n`` ranks, each on
+    ``device`` (JAX: every device)."""
+    return _mesh_of(cfg, n, device)
+
+
+def needs_ranks(n: int, sharded: bool = False) -> bool:
+    """True when this process must start the ranks: several asked for (or
+    any, for ``--sharded``) and no process group running yet (ranks the
+    launcher spawned and ``torchrun``'s run with one)."""
+    return (n > 1 or sharded) and not dist.is_initialized()
+
+
+def _call_rank(device, fn: Callable, kwargs: Dict):
+    out = fn(**kwargs)
+    history = getattr(out, "history", None)
+    return out if history is None else types.SimpleNamespace(
+        history=history)
+
+
+def spawn_ranks(n: int, on, fn: Callable, **kwargs):
+    """``fn(**kwargs)`` on ``n`` ranks on device type ``on``
+    (``parallel.launch.run_ranks``: one card a rank on ``cuda``, raising
+    when fewer are visible; gloo ranks on the CPU, sharing its cores).
+    Returns rank 0's result; a trainer's as a namespace with its
+    ``history``."""
+    from wsiseg_tpu_torch.parallel.launch import run_ranks
+    threads: Optional[int] = None
+    if torch.device(on).type == "cpu":
+        threads = max(1, (os.cpu_count() or 1) // max(1, n))
+    return run_ranks(_call_rank, n, on, args=(fn, kwargs), threads=threads)
 
 
 def add_device_flag(p: argparse.ArgumentParser, where: str) -> None:
@@ -161,8 +233,9 @@ def parse_eval_flags(argv):
     """Mode pre-parser for the eval CLIs (the JAX package's flags plus
     ``--device``). FCN is the default; ``--grid`` selects the reference
     overlap-add oracle, ``--streamed`` the host-decoded tile batches;
-    ``--sharded`` is parsed so that the eval entry can refuse it by
-    name."""
+    ``--sharded`` splits each slide's tiles over the ranks of
+    :func:`make_eval_mesh` (the grid, or with ``--streamed`` the streamed
+    row-sharded route)."""
     p = argparse.ArgumentParser(add_help=False)
     p.add_argument("--grid", action="store_true",
                    help="exact reference overlap-add stitching")

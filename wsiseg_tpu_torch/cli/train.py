@@ -19,9 +19,10 @@ from __future__ import annotations
 import os
 from typing import Optional, Sequence
 
-from wsiseg_tpu_torch.cli.common import (check_single_device,
-                                         make_preprocess, parse_train_flags,
-                                         setup_ynet)
+from wsiseg_tpu_torch.cli.common import (make_preprocess, make_train_mesh,
+                                         mesh_ranks, needs_ranks,
+                                         parse_train_flags, setup_ynet,
+                                         spawn_ranks)
 from wsiseg_tpu_torch.config import Config, parse_args
 from wsiseg_tpu_torch.data.patches import PatchDataset, cls_weights
 from wsiseg_tpu_torch.train.loop import Trainer
@@ -53,7 +54,12 @@ def wsi_validation(cfg: Config, model, device):
 
 
 def train(cfg: Config, device="cuda") -> Trainer:
-    check_single_device(cfg)
+    if cfg.device_cache and cfg.mesh:
+        raise ValueError("--device_cache is a single-device mode "
+                         "(the cache lives on one card); drop --mesh")
+    n = mesh_ranks(cfg.mesh, device)
+    if needs_ranks(n):
+        return spawn_ranks(n, device, train, cfg=cfg, device=device)
     state, start_epoch = setup_ynet(cfg, device)
     model = state.model
     dev = next(model.parameters()).device
@@ -62,7 +68,8 @@ def train(cfg: Config, device="cuda") -> Trainer:
                                   seg_weights=ws)
     ds = PatchDataset(cfg.train_image_pth, cfg)
     preprocess = make_preprocess(cfg)
-    make_batches = lambda: ds.batches(drop_remainder=True)  # noqa: E731
+    make_batches = lambda rows=None: ds.batches(  # noqa: E731
+        drop_remainder=True, rows=rows)
     if cfg.device_cache:
         from wsiseg_tpu_torch.train.device_cache import (
             DeviceEpochCache, make_cached_hybrid_train_step)
@@ -84,7 +91,9 @@ def train(cfg: Config, device="cuda") -> Trainer:
 
     validate_fn = (wsi_validation(cfg, model, dev) if cfg.raw_val_pth
                    else None)
-    trainer = Trainer(cfg, state, step, make_batches=make_batches,
+    trainer = Trainer(cfg, state, step,
+                      mesh=make_train_mesh(cfg, n, device),
+                      make_batches=make_batches,
                       preprocess_batch=preprocess, validate_fn=validate_fn)
     trainer.run(start_epoch=start_epoch)
     return trainer

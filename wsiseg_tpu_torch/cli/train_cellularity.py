@@ -16,9 +16,10 @@ from __future__ import annotations
 import os
 from typing import Optional, Sequence
 
-from wsiseg_tpu_torch.cli.common import (check_single_device,
-                                         make_preprocess, parse_train_flags,
-                                         setup_ynet)
+from wsiseg_tpu_torch.cli.common import (make_preprocess, make_train_mesh,
+                                         mesh_ranks, needs_ranks,
+                                         parse_train_flags, setup_ynet,
+                                         spawn_ranks)
 from wsiseg_tpu_torch.config import Config, parse_args
 from wsiseg_tpu_torch.data.patches import PatchDataset, cls_weights
 from wsiseg_tpu_torch.infer.evaluators import (predict_breastpathq,
@@ -28,7 +29,9 @@ from wsiseg_tpu_torch.train.steps import make_hybrid_train_step
 
 
 def train(cfg: Config, device="cuda") -> Trainer:
-    check_single_device(cfg)
+    n = mesh_ranks(cfg.mesh, device)
+    if needs_ranks(n):
+        return spawn_ranks(n, device, train, cfg=cfg, device=device)
     state, start_epoch = setup_ynet(cfg, device)
     model = state.model
     dev = next(model.parameters()).device
@@ -56,7 +59,9 @@ def train(cfg: Config, device="cuda") -> Trainer:
             return predict_reg(st.model, cfg, val_ds.batches(), device=dev)
 
     trainer = Trainer(cfg, state, step,
-                      make_batches=lambda: ds.batches(drop_remainder=True),
+                      mesh=make_train_mesh(cfg, n, device),
+                      make_batches=lambda rows=None: ds.batches(
+                          drop_remainder=True, rows=rows),
                       preprocess_batch=make_preprocess(cfg),
                       validate_fn=validate_fn)
     trainer.run(start_epoch=start_epoch)

@@ -20,9 +20,10 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from wsiseg_tpu_torch.cli.common import (check_single_device, make_hr_apply,
-                                         make_preprocess, parse_train_flags,
-                                         setup_hr)
+from wsiseg_tpu_torch.cli.common import (make_hr_apply, make_preprocess,
+                                         make_train_mesh, mesh_ranks,
+                                         needs_ranks, parse_train_flags,
+                                         setup_hr, spawn_ranks)
 from wsiseg_tpu_torch.config import Config, parse_args
 from wsiseg_tpu_torch.data.regions import HRRegionDataset, validate_hr
 from wsiseg_tpu_torch.train.loop import Trainer
@@ -40,7 +41,11 @@ def inverse_ratio_weights(ratios: np.ndarray) -> np.ndarray:
 
 
 def train(cfg: Config, duplicate_dataset: int = 1, device="cuda") -> Trainer:
-    check_single_device(cfg)
+    n = mesh_ranks(cfg.mesh, device)
+    if needs_ranks(n):
+        return spawn_ranks(n, device, train, cfg=cfg,
+                           duplicate_dataset=duplicate_dataset,
+                           device=device)
     state, start_epoch = setup_hr(cfg, device)
     dev = next(state.model.parameters()).device
     ds = HRRegionDataset(cfg.train_hr_image_pth, cfg,
@@ -62,7 +67,9 @@ def train(cfg: Config, duplicate_dataset: int = 1, device="cuda") -> Trainer:
             out = validate_hr(make_hr_apply(st.model, cfg, dev), val, cfg)
             return {"acc": out["acc"]}
 
-    trainer = Trainer(cfg, state, step, make_batches=lambda: ds.batches(),
+    trainer = Trainer(cfg, state, step,
+                      mesh=make_train_mesh(cfg, n, device),
+                      make_batches=lambda rows=None: ds.batches(rows=rows),
                       preprocess_batch=make_preprocess(cfg),
                       validate_fn=validate_fn)
     trainer.run(start_epoch=start_epoch)

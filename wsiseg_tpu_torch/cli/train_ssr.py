@@ -17,9 +17,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from wsiseg_tpu_torch.cli.common import (check_single_device,
-                                         make_preprocess, parse_train_flags,
-                                         setup_ynet)
+from wsiseg_tpu_torch.cli.common import (make_preprocess, make_train_mesh,
+                                         mesh_ranks, needs_ranks,
+                                         parse_train_flags, setup_ynet,
+                                         spawn_ranks)
 from wsiseg_tpu_torch.config import Config, parse_args
 from wsiseg_tpu_torch.data.ssr import SSRSegDataset
 from wsiseg_tpu_torch.models.ynet import compute_copy
@@ -50,7 +51,10 @@ def validate_ssr(model, cfg: Config, dataset) -> dict:
 
 
 def train(cfg: Config, with_dice: bool = True, device="cuda") -> Trainer:
-    check_single_device(cfg)
+    n = mesh_ranks(cfg.mesh, device)
+    if needs_ranks(n):
+        return spawn_ranks(n, device, train, cfg=cfg, with_dice=with_dice,
+                           device=device)
     state, start_epoch = setup_ynet(cfg, device)
     step = make_seg_train_step(state.model, cfg, with_dice=with_dice)
     ds = SSRSegDataset(cfg.train_image_pth, cfg)
@@ -66,7 +70,9 @@ def train(cfg: Config, with_dice: bool = True, device="cuda") -> Trainer:
                 return {}
             return validate_ssr(st.model, cfg, val)
 
-    trainer = Trainer(cfg, state, step, make_batches=lambda: ds.batches(),
+    trainer = Trainer(cfg, state, step,
+                      mesh=make_train_mesh(cfg, n, device),
+                      make_batches=lambda rows=None: ds.batches(rows=rows),
                       preprocess_batch=make_preprocess(cfg),
                       validate_fn=validate_fn)
     trainer.run(start_epoch=start_epoch)

@@ -9,6 +9,10 @@ tile, the same shuffle from the same generator. So for one seed the two
 packages feed identical batches. Photometric jitter and normalization run
 on the device (:func:`normalize_batch_images`).
 
+Under data parallelism each rank decodes only its rows of each batch
+(``batches(rows=...)``): the rotations of every row are still drawn, in
+row order, so every rank's rows are the single-device batch's rows.
+
 Batch dict (numpy):
   image      (B, H, W, 3) uint8
   seg_label  (B, H, W) int32     zeros where not seg
@@ -23,7 +27,7 @@ the native decoder (ROADMAP.md §3).
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -33,6 +37,25 @@ from wsiseg_tpu_torch.config import Config
 from wsiseg_tpu_torch.data import metadata as md
 from wsiseg_tpu_torch.ops.color import (apply_color_jitter,
                                         draw_jitter_factors, normalize)
+
+
+#: ``rows(b)``: the indices of the rows one rank keeps of a b-row batch
+#: (``parallel.mesh.batch_rows``); None keeps every row
+Rows = Optional[Callable[[int], np.ndarray]]
+
+
+def draw_rotations(rng: np.random.RandomState, n: int,
+                   eval: bool) -> List[int]:
+    """``n`` random 90° rotation counts, one ``rng.randint(0, 4)`` each in
+    row order as the reference draws them per sample; none drawn (zeros)
+    in eval."""
+    return [0] * n if eval else [int(rng.randint(0, 4)) for _ in range(n)]
+
+
+def kept_rows(rows: Rows, n: int) -> np.ndarray:
+    """The indices of an n-row batch that ``rows`` keeps (all of them for
+    None)."""
+    return np.arange(n) if rows is None else np.asarray(rows(n))
 
 
 class PatchDataset:
@@ -53,19 +76,17 @@ class PatchDataset:
     def __len__(self) -> int:
         return len(self.records)
 
-    def _load(self, rec: md.PatchRecord):
+    def _load(self, rec: md.PatchRecord, k: int):
         image = Image.open(rec.image_path).convert("RGB")
         if rec.task is md.Task.SEG:
             label = Image.open(str(rec.label))
         else:
             label = Image.fromarray(
                 np.zeros((image.size[1], image.size[0]), dtype=np.uint8))
-        if not self.eval:
-            # random 90° rotation + resize (utils/dataset.py:47-55)
-            k = int(self._rng.randint(0, 4))
-            if k:
-                image = image.rotate(90 * k, expand=True)
-                label = label.rotate(90 * k, expand=True)
+        # random 90° rotation (k) + resize (utils/dataset.py:47-55)
+        if k:
+            image = image.rotate(90 * k, expand=True)
+            label = label.rotate(90 * k, expand=True)
         image = image.resize((self.cfg.tile_w, self.cfg.tile_h))
         label = label.resize((self.cfg.tile_w, self.cfg.tile_h),
                              Image.NEAREST)
@@ -73,8 +94,11 @@ class PatchDataset:
 
     def batches(self, batch_size: Optional[int] = None,
                 shuffle: Optional[bool] = None,
-                drop_remainder: bool = False
+                drop_remainder: bool = False, rows: Rows = None
                 ) -> Iterator[Dict[str, np.ndarray]]:
+        """Batches of ``batch_size`` records (the last one short unless
+        ``drop_remainder``); with ``rows``, only the rows it keeps of each
+        (:data:`Rows`)."""
         bs = batch_size or self.cfg.batch_size
         shuffle = (not self.eval) if shuffle is None else shuffle
         order = np.arange(len(self.records))
@@ -85,6 +109,9 @@ class PatchDataset:
             idx = order[start:start + bs]
             if drop_remainder and len(idx) < bs:
                 return
+            ks = np.asarray(draw_rotations(self._rng, len(idx), self.eval))
+            keep = kept_rows(rows, len(idx))
+            idx, ks = idx[keep], ks[keep]
             n = len(idx)
             batch = {
                 "image": np.zeros((n, h, w, 3), np.uint8),
@@ -95,9 +122,9 @@ class PatchDataset:
                 "is_reg": np.zeros((n,), np.float32),
                 "is_seg": np.zeros((n,), np.float32),
             }
-            for bi, ri in enumerate(idx):
+            for bi, (ri, k) in enumerate(zip(idx, ks)):
                 rec = self.records[ri]
-                img, lab = self._load(rec)
+                img, lab = self._load(rec, int(k))
                 batch["image"][bi] = img
                 if rec.task is md.Task.SEG:
                     batch["seg_label"][bi] = lab
@@ -144,15 +171,22 @@ def cls_weights(impth: str, cfg: Config, ignore_index: Optional[int] = None,
 
 def normalize_batch_images(image_u8: torch.Tensor, cfg: Config,
                            generator: Optional[torch.Generator] = None,
-                           train: bool = False) -> torch.Tensor:
+                           train: bool = False, rows=None) -> torch.Tensor:
     """(B, H, W, 3) uint8 → normalized float32 (float64 under an f64
     ``compute_dtype``), on the input's device. With ``train`` and a
     ``generator`` (on that device), each image first takes the reference
     augmentor's color jitter (utils/preprocessing.py:206-218) with
-    factors drawn from the generator."""
+    factors drawn from the generator. ``rows = (n, index)`` says that
+    these images are rows ``index`` of an n-image batch (one rank's share
+    under data parallelism): the n images' factors are drawn and the
+    rows' taken, so every rank jitters as the single device would."""
     dt = torch.float64 if cfg.compute_dtype == "float64" else torch.float32
     img = image_u8.to(dt) / 255.0
     if train and generator is not None:
-        img = apply_color_jitter(
-            img, draw_jitter_factors(img.shape[0], generator, dtype=dt))
+        if rows is None:
+            factors = draw_jitter_factors(img.shape[0], generator, dtype=dt)
+        else:
+            factors = draw_jitter_factors(rows[0], generator,
+                                          dtype=dt)[rows[1]]
+        img = apply_color_jitter(img, factors)
     return normalize(img, cfg.dataset_mean, cfg.dataset_std)

@@ -31,6 +31,7 @@ from PIL import Image
 
 from wsiseg_tpu_torch.config import Config
 from wsiseg_tpu_torch.data import metadata as md
+from wsiseg_tpu_torch.data.patches import Rows, draw_rotations, kept_rows
 from wsiseg_tpu_torch.ops.geometry import map_points
 from wsiseg_tpu_torch.ops.kmeans import kmeans
 from wsiseg_tpu_torch.ops.morphology import erode
@@ -280,7 +281,8 @@ class HRRegionDataset:
     def __len__(self) -> int:
         return len(self.datalist)
 
-    def _read_patches(self, item: dict) -> np.ndarray:
+    def _read_patches(self, item: dict, ks) -> np.ndarray:
+        """The 16 patches of a region, patch j rotated by ``ks[j]`` × 90°."""
         centers = _select_centers(item["cnt_xy"], item["perim_xy"])
         patches = np.zeros((HR_NUM_SAMPLES, HR_PATCH_H, HR_PATCH_W, 3),
                            np.uint8)
@@ -315,17 +317,17 @@ class HRRegionDataset:
                     patches[cj] = scan.read_region(
                         (int(x), int(y)), HR_SCAN_LEVEL,
                         (HR_PATCH_W, HR_PATCH_H))
-        if not self.eval:
-            # random 90° rotation per patch (dataset_hr.py:194-196)
-            for cj in range(HR_NUM_SAMPLES):
-                k = int(self._rng.randint(0, 4))
-                if k:
-                    patches[cj] = np.rot90(patches[cj], k)
+        # random 90° rotation per patch (dataset_hr.py:194-196)
+        for cj, k in enumerate(ks):
+            if k:
+                patches[cj] = np.rot90(patches[cj], k)
         return patches
 
     def batches(self, batch_size: Optional[int] = None,
-                shuffle: Optional[bool] = None
+                shuffle: Optional[bool] = None, rows: Rows = None
                 ) -> Iterator[Dict[str, np.ndarray]]:
+        """Batches of ``batch_size`` regions; with ``rows``, only the rows
+        it keeps of each (``data.patches.Rows``)."""
         bs = batch_size or self.cfg.batch_size
         shuffle = (not self.eval) if shuffle is None else shuffle
         order = np.arange(len(self.datalist))
@@ -333,15 +335,20 @@ class HRRegionDataset:
             self._rng.shuffle(order)
         for start in range(0, len(order), bs):
             idx = order[start:start + bs]
+            ks = np.asarray(draw_rotations(
+                self._rng, len(idx) * HR_NUM_SAMPLES, self.eval)).reshape(
+                    len(idx), HR_NUM_SAMPLES)
+            keep = kept_rows(rows, len(idx))
+            idx, ks = idx[keep], ks[keep]
             n = len(idx)
             batch = {
                 "image": np.zeros((n, HR_NUM_SAMPLES, HR_PATCH_H,
                                    HR_PATCH_W, 3), np.uint8),
                 "cls_label": np.zeros((n,), np.int32),
             }
-            for bi, ri in enumerate(idx):
+            for bi, (ri, k) in enumerate(zip(idx, ks)):
                 item = self.datalist[ri]
-                batch["image"][bi] = self._read_patches(item)
+                batch["image"][bi] = self._read_patches(item, k)
                 batch["cls_label"][bi] = int(item["label"])
             yield batch
 

@@ -18,6 +18,7 @@ from PIL import Image
 
 from wsiseg_tpu_torch.config import Config
 from wsiseg_tpu_torch.data import metadata as md
+from wsiseg_tpu_torch.data.patches import Rows, draw_rotations, kept_rows
 from wsiseg_tpu_torch.utils.filesystem import fix_path
 
 # the reference resizes every region to 512×512 (dataset_ssr.py:47-48)
@@ -54,22 +55,22 @@ class SSRSegDataset:
     def __len__(self) -> int:
         return len(self.datalist)
 
-    def _load(self, item: dict):
+    def _load(self, item: dict, k: int):
         image = Image.open(item["image"]).convert("RGB")
         label = Image.open(item["label"])
-        if not self.eval:
-            k = int(self._rng.randint(0, 4))
-            if k:
-                image = image.rotate(90 * k, expand=True)
-                label = label.rotate(90 * k, expand=True)
+        if k:
+            image = image.rotate(90 * k, expand=True)
+            label = label.rotate(90 * k, expand=True)
         image = image.resize((SSR_SIZE, SSR_SIZE))
         label = label.resize((SSR_SIZE, SSR_SIZE))
         lab = _mask_labels(np.asarray(label))
         return np.asarray(image, np.uint8), lab.astype(np.int32)
 
     def batches(self, batch_size: Optional[int] = None,
-                shuffle: Optional[bool] = None
+                shuffle: Optional[bool] = None, rows: Rows = None
                 ) -> Iterator[Dict[str, np.ndarray]]:
+        """Batches of ``batch_size`` items; with ``rows``, only the rows
+        it keeps of each (``data.patches.Rows``)."""
         bs = batch_size or self.cfg.batch_size
         shuffle = (not self.eval) if shuffle is None else shuffle
         order = np.arange(len(self.datalist))
@@ -77,13 +78,16 @@ class SSRSegDataset:
             self._rng.shuffle(order)
         for start in range(0, len(order), bs):
             idx = order[start:start + bs]
+            ks = np.asarray(draw_rotations(self._rng, len(idx), self.eval))
+            keep = kept_rows(rows, len(idx))
+            idx, ks = idx[keep], ks[keep]
             n = len(idx)
             batch = {
                 "image": np.zeros((n, SSR_SIZE, SSR_SIZE, 3), np.uint8),
                 "seg_label": np.zeros((n, SSR_SIZE, SSR_SIZE), np.int32),
             }
-            for bi, ri in enumerate(idx):
-                img, lab = self._load(self.datalist[ri])
+            for bi, (ri, k) in enumerate(zip(idx, ks)):
+                img, lab = self._load(self.datalist[ri], int(k))
                 batch["image"][bi] = img
                 batch["seg_label"][bi] = lab
             yield batch
@@ -157,8 +161,10 @@ class SSRClsDataset:
         return len(self.datalist)
 
     def batches(self, batch_size: Optional[int] = None,
-                shuffle: Optional[bool] = None
+                shuffle: Optional[bool] = None, rows: Rows = None
                 ) -> Iterator[Dict[str, np.ndarray]]:
+        """Batches of ``batch_size`` items; with ``rows``, only the rows
+        it keeps of each (``data.patches.Rows``)."""
         bs = batch_size or self.cfg.batch_size
         shuffle = (not self.eval) if shuffle is None else shuffle
         order = np.arange(len(self.datalist))
@@ -167,18 +173,19 @@ class SSRClsDataset:
         h, w = self.cfg.tile_h, self.cfg.tile_w
         for start in range(0, len(order), bs):
             idx = order[start:start + bs]
+            ks = np.asarray(draw_rotations(self._rng, len(idx), self.eval))
+            keep = kept_rows(rows, len(idx))
+            idx, ks = idx[keep], ks[keep]
             n = len(idx)
             batch = {
                 "image": np.zeros((n, h, w, 3), np.uint8),
                 "cls_label": np.zeros((n,), np.int32),
             }
-            for bi, ri in enumerate(idx):
+            for bi, (ri, k) in enumerate(zip(idx, ks)):
                 item = self.datalist[ri]
                 img = Image.open(item["image"]).convert("RGB")
-                if not self.eval:
-                    k = int(self._rng.randint(0, 4))
-                    if k:
-                        img = img.rotate(90 * k, expand=True)
+                if k:
+                    img = img.rotate(90 * k, expand=True)
                 img = img.resize((w, h))
                 batch["image"][bi] = np.asarray(img, np.uint8)
                 batch["cls_label"][bi] = item["label"]

@@ -34,8 +34,29 @@ routes). Two modes, as there:
 canvas in JAX's ``(H, W, C)`` layout. The model's weights for the fused
 route are converted once, when the engine is built
 (:func:`wsiseg_tpu_torch.models.infer_fast.prepare_fast`); the fold
-route's and the tile forward's at their first use. Sharded (mesh) routes
-raise ``NotImplementedError`` naming their ROADMAP item.
+route's and the tile forward's at their first use.
+
+**Sharded routes** (JAX ``engine.py:695-853, 1042-1411``) run over a
+``DeviceMesh`` (:mod:`wsiseg_tpu_torch.parallel`): the port is
+multi-controller, so every rank calls a route with the same plan(s) and
+every rank returns the full :class:`SlideResult`, as JAX returns the
+gathered result to its one host.
+
+- ``predict_slide_sharded``: the tile grid split into per-rank blocks,
+  each rank adding its tiles into a full local canvas, one all-reduce
+  merging the canvases (JAX's ``psum``).
+- ``predict_slide_sharded_rows`` and ``predict_slide_streamed_sharded``:
+  tiles routed to row stripes by y-origin, each rank's canvas its stripe
+  plus the rows its tiles overhang, the overhang moved to the ranks below
+  (:func:`~wsiseg_tpu_torch.parallel.comm.shift`, JAX's ``ppermute``),
+  the stripes gathered; the streamed route decodes each rank's own tile
+  batches on the host.
+- ``predict_slides_fcn_sharded``: slide-parallel, each rank serving its
+  share of the slides through the fused route (one batched forward, as
+  :meth:`_serve`), the packed label and heat planes gathered.
+- ``predict_slide_fcn_sharded_rows``: each rank runs the chunked FCN's
+  tile forward on its own 255-padded halo stripe
+  (:meth:`stage_slide_fcn_rows`); the stripes are gathered.
 """
 
 from __future__ import annotations
@@ -63,8 +84,10 @@ from wsiseg_tpu_torch.ops.morphology import bwperim, dilate, opening
 from wsiseg_tpu_torch.ops.stitch import gather_tiles, \
     scatter_add_scalar_tiles, scatter_add_tiles
 from wsiseg_tpu_torch.ops.threshold import threshold_probs_planar
+from wsiseg_tpu_torch.parallel import comm
+from wsiseg_tpu_torch.parallel.mesh import mesh_group, mesh_rank, mesh_size
 
-MULTI_GPU_ITEM = "not ported yet: ROADMAP.md, queue 1, 'Multi-GPU'"
+SPATIAL_ITEM = "not ported yet: ROADMAP.md, queue 1, 'Multi-GPU, spatial'"
 
 #: Peak device bytes per padded pixel of the fused whole-image route, for
 #: the widest family one card serves: resnet50 Linknet, 6.7607 GB around
@@ -83,6 +106,18 @@ FCN_GROUP_SLIDES = 4
 #: (4096×3072). Larger slides take the banded route.
 FCN_FAST_MAX_PX = int(FCN_DEVICE_BUDGET
                       // (FCN_PEAK_BYTES_PER_PX * FCN_GROUP_SLIDES))
+
+
+def fcn_stripe_geometry(h: int, w: int, n_dev: int) -> Tuple[int, int]:
+    """Row-stripe chunk geometry shared by
+    :meth:`DenseInferenceEngine.predict_slide_fcn_sharded_rows` and its
+    single-device oracle ``predict_slide_fcn(chunk=(ch, cw))`` (JAX
+    ``engine.py:74-89``): the stripe height covers ``h`` in ``n_dev``
+    stripes, 32-aligned; the width is one full-width 512-aligned chunk."""
+    per = -(-h // n_dev)
+    ch = max(32, -(-per // 32) * 32)
+    cw = max(512, -(-w // 512) * 512)
+    return ch, cw
 
 
 @dataclass
@@ -365,15 +400,15 @@ class DenseInferenceEngine:
         return scatter_add_tiles(canvas, seg[:k], ys[:k], xs[:k])
 
     def _full_pass(self, level_img: torch.Tensor, canvas: torch.Tensor,
-                   ys_all, xs_all, valid_all) -> torch.Tensor:
+                   ys_all, xs_all, valid_all, y0: int = 0) -> torch.Tensor:
         """The whole grid, batch after batch (JAX ``_seg_full_pass`` and
         ``_cls_full_pass``, each batch its ``_seg_tile_batch``): tiles
         gathered from the device-resident level image, forwarded, added
-        into the canvas."""
+        into the canvas, whose row 0 is the image's row ``y0``."""
         cfg = self.cfg
         for ys, xs, valid in zip(ys_all, xs_all, valid_all):
             tiles = gather_tiles(level_img, ys, xs, cfg.tile_h, cfg.tile_w)
-            self._streamed_batch(canvas, tiles, ys, xs, valid)
+            self._streamed_batch(canvas, tiles, ys - y0, xs, valid)
         return canvas
 
     def _fcn_full_pass(self, img_pad: torch.Tensor, chunk_h: int,
@@ -544,10 +579,15 @@ class DenseInferenceEngine:
 
     def _serve(self, plans: List[SlidePlan], imgs=None) -> List[SlideResult]:
         t0 = time.time()
-        batch, masks = self._inputs(plans, imgs)
-        labels, heat = self._run_fused(batch, masks)
+        labels, heat = self._run_fused(*self._inputs(plans, imgs))
         labels, heat = labels.cpu().numpy(), heat.cpu().numpy()
-        per = (time.time() - t0) / len(plans)
+        return self._results(plans, labels, heat,
+                             (time.time() - t0) / len(plans))
+
+    def _results(self, plans: Sequence[SlidePlan], labels: np.ndarray,
+                 heat: np.ndarray, per: float) -> List[SlideResult]:
+        """Each slide's result from the fused route's host planes (packed
+        labels and heat, slide k at index k)."""
         f2 = self._head_f() ** 2
         results = []
         for k, p in enumerate(plans):
@@ -623,6 +663,29 @@ class DenseInferenceEngine:
         return self._finish(plan, canvas, len(plan.grid), t0, keep_canvas,
                             keep_probs)
 
+    def _host_batches(self, plan: SlidePlan, xs_p, ys_p, valid,
+                      nthreads: int, y0: int = 0):
+        """Host tile batches of the streamed routes: the slide's
+        multi-threaded ``read_tiles`` when it has one, else per-tile
+        ``read_region``; each batch's origins (``ys`` relative to canvas
+        row ``y0``) stay host lists, which the adds slice with."""
+        cfg = self.cfg
+        slide = plan.slide
+        ds_lvl = slide.level_downsamples[cfg.scan_level]
+        reader = getattr(slide, "read_tiles", None)
+        for bx, by, bv in zip(xs_p, ys_p, valid):
+            if reader is not None:
+                tiles = reader(bx, by, cfg.scan_level, cfg.tile_w,
+                               cfg.tile_h, nthreads=nthreads)
+            else:
+                tiles = np.stack([
+                    slide.read_region(
+                        (int(x * ds_lvl), int(y * ds_lvl)),
+                        cfg.scan_level, (cfg.tile_w, cfg.tile_h))
+                    for x, y in zip(bx, by)])
+            yield {"tiles": np.asarray(tiles), "ys": (by - y0).tolist(),
+                   "xs": bx.tolist(), "valid": bv.tolist()}
+
     @torch.no_grad()
     def predict_slide_streamed(self, plan: SlidePlan, nthreads: int = 8,
                                keep_canvas: bool = False,
@@ -640,27 +703,9 @@ class DenseInferenceEngine:
                              device=self.device)
         xs_p, ys_p, valid = self._pad_grid(plan.grid.xs, plan.grid.ys,
                                            self.batch)
-        slide = plan.slide
-        ds_lvl = slide.level_downsamples[cfg.scan_level]
-        reader = getattr(slide, "read_tiles", None)
-
-        def host_batches():
-            for bx, by, bv in zip(xs_p, ys_p, valid):
-                if reader is not None:
-                    tiles = reader(bx, by, cfg.scan_level, cfg.tile_w,
-                                   cfg.tile_h, nthreads=nthreads)
-                else:
-                    tiles = np.stack([
-                        slide.read_region(
-                            (int(x * ds_lvl), int(y * ds_lvl)),
-                            cfg.scan_level, (cfg.tile_w, cfg.tile_h))
-                        for x, y in zip(bx, by)])
-                # origins stay host lists: the adds slice with them
-                yield {"tiles": np.asarray(tiles), "ys": by.tolist(),
-                       "xs": bx.tolist(), "valid": bv.tolist()}
-
-        for b in prefetch_to_device(host_batches(), depth=cfg.prefetch_depth,
-                                    device=self.device):
+        for b in prefetch_to_device(
+                self._host_batches(plan, xs_p, ys_p, valid, nthreads),
+                depth=cfg.prefetch_depth, device=self.device):
             self._streamed_batch(canvas, b["tiles"], b["ys"], b["xs"],
                                  b["valid"])
         return self._finish(plan, canvas, len(plan.grid), t0, keep_canvas,
@@ -779,6 +824,217 @@ class DenseInferenceEngine:
                 p, img=None if imgs is None else imgs[k])
                 for k, p in enumerate(plans)]
         return self._serve(plans, imgs)
+
+    # ---- sharded routes (every rank calls, every rank returns) ----
+
+    def _stripes(self, plan: SlidePlan, n_dev: int, r: int):
+        """Tiles routed to ``n_dev`` row stripes by y-origin (JAX
+        ``engine.py:1264-1280``): (stripe rows, halo chunks a tile can
+        spill into, this rank's (n_batches, bs) xs, ys and valid, padded
+        to the fullest stripe's batch count)."""
+        hs, _ = plan.stitch_hw
+        bs = self.batch
+        stripe = -(-hs // n_dev)
+        n_halo = -(-(self.cfg.tile_h - 1) // stripe)
+        xs, ys = plan.grid.xs, plan.grid.ys
+        owner = np.minimum(ys // stripe, n_dev - 1)
+        per = [np.flatnonzero(owner == d) for d in range(n_dev)]
+        n_batches = max(1, -(-max(len(p) for p in per) // bs))
+        cap = n_batches * bs
+        mine = per[r]
+        xs_s = np.zeros(cap, np.int32)
+        ys_s = np.zeros(cap, np.int32)
+        val_s = np.zeros(cap, np.float32)
+        xs_s[:len(mine)] = xs[mine]
+        ys_s[:len(mine)] = ys[mine]
+        val_s[:len(mine)] = 1.0
+        return (stripe, n_halo, xs_s.reshape(-1, bs), ys_s.reshape(-1, bs),
+                val_s.reshape(-1, bs))
+
+    def _merge_stripes(self, local: torch.Tensor, stripe: int, n_halo: int,
+                       hs: int, group) -> torch.Tensor:
+        """Halo exchange (chunk k of a rank's overhang belongs to the rank
+        k below, JAX ``ppermute`` with (i, i + k)), then every stripe
+        gathered: the (hs, W, C) canvas on every rank."""
+        main = local[:stripe]
+        for k in range(1, 1 + n_halo):
+            main = main + comm.shift(
+                local[stripe * k:stripe * (k + 1)].contiguous(), k, group)
+        n_dev = comm.world(group)
+        return comm.gather_slots(main, group).reshape(
+            n_dev * stripe, *main.shape[1:])[:hs]
+
+    @torch.no_grad()
+    def predict_slide_sharded(self, plan: SlidePlan, mesh,
+                              axis: str = "data", keep_canvas: bool = False,
+                              keep_probs: bool = False,
+                              level_img=None) -> SlideResult:
+        """One slide's tile stream split over the mesh (JAX
+        ``engine.py:1133-1223``): the grid padded to (n_dev, n_batches,
+        bs) as JAX pads it, rank r adding block r into a full local canvas,
+        one all-reduce merging the canvases (JAX's ``psum``), and every
+        rank finishing the slide. Every rank reads the level image
+        (``level_img``: a staged one from :meth:`stage_slide`)."""
+        cfg = self.cfg
+        t0 = time.time()
+        n_dev, r = mesh_size(mesh, axis), mesh_rank(mesh, axis)
+        bs = self.batch
+        img = self._take(level_img if level_img is not None
+                         else self.stage_slide(plan))
+        hs, ws = plan.stitch_hw
+        xs, ys = plan.grid.xs, plan.grid.ys
+        n = len(xs)
+        pad = (-n) % (n_dev * bs)
+        shape3 = (n_dev, -1, bs)
+        xs_p = np.concatenate([xs, np.zeros(pad, np.int32)]).reshape(shape3)
+        ys_p = np.concatenate([ys, np.zeros(pad, np.int32)]).reshape(shape3)
+        valid = np.concatenate([np.ones(n, np.float32),
+                                np.zeros(pad, np.float32)]).reshape(shape3)
+        canvas = torch.zeros((hs, ws, cfg.num_classes), dtype=torch.float32,
+                             device=self.device)
+        self._full_pass(img, canvas, ys_p[r], xs_p[r], valid[r])
+        canvas = comm.global_sum(canvas, mesh_group(mesh, axis))
+        return self._finish(plan, canvas, n, t0, keep_canvas, keep_probs)
+
+    @torch.no_grad()
+    def predict_slide_sharded_rows(self, plan: SlidePlan, mesh,
+                                   axis: str = "data",
+                                   keep_canvas: bool = False,
+                                   keep_probs: bool = False,
+                                   level_img=None) -> SlideResult:
+        """One slide with a row-sharded canvas (JAX
+        ``engine.py:1225-1349``): rank r owns rows [r·stripe,
+        (r+1)·stripe) and keeps ``stripe·(1+n_halo)`` rows, its tiles
+        added at their origins less r·stripe; the overhang moves down by
+        :func:`~wsiseg_tpu_torch.parallel.comm.shift`, and the stripes are
+        gathered before :meth:`_finish`."""
+        cfg = self.cfg
+        t0 = time.time()
+        n_dev, r = mesh_size(mesh, axis), mesh_rank(mesh, axis)
+        group = mesh_group(mesh, axis)
+        img = self._take(level_img if level_img is not None
+                         else self.stage_slide(plan))
+        hs, ws = plan.stitch_hw
+        stripe, n_halo, xs_s, ys_s, val_s = self._stripes(plan, n_dev, r)
+        local = torch.zeros((stripe * (1 + n_halo), ws, cfg.num_classes),
+                            dtype=torch.float32, device=self.device)
+        self._full_pass(img, local, ys_s, xs_s, val_s, y0=r * stripe)
+        canvas = self._merge_stripes(local, stripe, n_halo, hs, group)
+        return self._finish(plan, canvas, len(plan.grid), t0, keep_canvas,
+                            keep_probs)
+
+    @torch.no_grad()
+    def predict_slide_streamed_sharded(self, plan: SlidePlan, mesh,
+                                       axis: str = "data",
+                                       nthreads: int = 8,
+                                       keep_canvas: bool = False,
+                                       keep_probs: bool = False
+                                       ) -> SlideResult:
+        """Streamed tiles and a row-sharded canvas (JAX
+        ``engine.py:695-853``): each rank decodes on the host only the tile
+        batches of its own stripe (:meth:`_host_batches`), prefetches them
+        and adds them into its stripe-plus-overhang canvas; one halo merge
+        at the end. Stitching equals :meth:`predict_slide`'s."""
+        cfg = self.cfg
+        t0 = time.time()
+        n_dev, r = mesh_size(mesh, axis), mesh_rank(mesh, axis)
+        hs, ws = plan.stitch_hw
+        stripe, n_halo, xs_s, ys_s, val_s = self._stripes(plan, n_dev, r)
+        local = torch.zeros((stripe * (1 + n_halo), ws, cfg.num_classes),
+                            dtype=torch.float32, device=self.device)
+        for b in prefetch_to_device(
+                self._host_batches(plan, xs_s, ys_s, val_s, nthreads,
+                                   y0=r * stripe),
+                depth=cfg.prefetch_depth, device=self.device):
+            self._streamed_batch(local, b["tiles"], b["ys"], b["xs"],
+                                 b["valid"])
+        canvas = self._merge_stripes(local, stripe, n_halo, hs,
+                                     mesh_group(mesh, axis))
+        return self._finish(plan, canvas, len(plan.grid), t0, keep_canvas,
+                            keep_probs)
+
+    @torch.no_grad()
+    def predict_slides_fcn_sharded(self, plans, mesh, axis: str = "data",
+                                   imgs=None) -> List[SlideResult]:
+        """Slide-parallel serving (JAX ``engine.py:1042-1131``): rank r
+        serves slides [r·per, (r+1)·per) through the fused route (one
+        batched forward and its host interleave, as :meth:`_serve`), and
+        the finished results are gathered to every rank
+        (:func:`~wsiseg_tpu_torch.parallel.comm.gather_objects`). Needs
+        k·n_dev slides of one padded geometry on the planar fused route.
+        ``imgs`` optionally supplies padded host images (numpy) or staged
+        images, index-aligned with ``plans``."""
+        plans = list(plans)
+        n_dev, r = mesh_size(mesh, axis), mesh_rank(mesh, axis)
+        dims = {self._fcn_fast_dims(*p.stitch_hw) for p in plans}
+        if (not plans or len(plans) % n_dev or len(dims) != 1
+                or not self._fcn_fast_ok()
+                or not all(self._fcn_planar_ok(p) and self._fcn_fast_fits(p)
+                           for p in plans)):
+            raise ValueError(
+                "slide-parallel serving needs k*n_dev slides of identical "
+                "padded geometry on the planar fast path; use "
+                "predict_slides_fcn / predict_slide_fcn otherwise")
+        t0 = time.time()
+        per = len(plans) // n_dev
+        mine = range(r * per, (r + 1) * per)
+        staged = None
+        if imgs is not None:
+            staged = [self._stage(imgs[k]) if isinstance(imgs[k], np.ndarray)
+                      else imgs[k] for k in mine]
+        own = [plans[k] for k in mine]
+        labels, heat = self._run_fused(*self._inputs(own, staged))
+        res = self._results(own, labels.cpu().numpy(), heat.cpu().numpy(),
+                            (time.time() - t0) / len(plans))
+        every = comm.gather_objects(res, mesh_group(mesh, axis))
+        return [x for part in every for x in part]
+
+    def stage_slide_fcn_rows(self, plan: SlidePlan, mesh, axis: str = "data",
+                             halo: int = 128):
+        """This rank's input stripe for :meth:`predict_slide_fcn_sharded_rows`
+        (JAX ``engine.py:1391-1411``, where the host builds every stripe):
+        rows [r·ch − halo, (r+1)·ch + halo) of the level image read from
+        the slide and framed in 255 as JAX pads the whole image, then
+        uploaded. Returns (staged stripe, ch, cw)."""
+        cfg = self.cfg
+        n_dev, r = mesh_size(mesh, axis), mesh_rank(mesh, axis)
+        w, h = plan.slide.level_dimensions[cfg.scan_level]
+        ch, cw = fcn_stripe_geometry(h, w, n_dev)
+        y0 = r * ch - halo                  # the stripe's top image row
+        band = np.full((ch + 2 * halo, cw + 2 * halo, 3), 255, np.uint8)
+        ry0, ry1 = max(0, y0), min(h, y0 + ch + 2 * halo)
+        if ry1 > ry0:
+            ds = plan.slide.level_downsamples[cfg.scan_level]
+            band[ry0 - y0:ry1 - y0, halo:halo + w] = np.asarray(
+                plan.slide.read_region((0, int(round(ry0 * ds))),
+                                       cfg.scan_level, (w, ry1 - ry0)))
+        return self._stage(band), ch, cw
+
+    @torch.no_grad()
+    def predict_slide_fcn_sharded_rows(self, plan: SlidePlan, mesh,
+                                       axis: str = "data", halo: int = 128,
+                                       keep_canvas: bool = False,
+                                       keep_probs: bool = False,
+                                       staged=None) -> SlideResult:
+        """Row-striped FCN (JAX ``engine.py:1355-1389``): each rank runs
+        the chunked FCN's tile forward (:meth:`_fcn_full_pass`'s) on its
+        halo stripe and crops ``[halo:halo+ch, halo:halo+cw]``; the
+        stripes are gathered and every rank finishes the slide. Equals
+        ``predict_slide_fcn(chunk=fcn_stripe_geometry(h, w, n_dev))``.
+        ``staged`` takes :meth:`stage_slide_fcn_rows`'s result."""
+        t0 = time.time()
+        if staged is None:
+            staged = self.stage_slide_fcn_rows(plan, mesh, axis, halo)
+        stripe, ch, cw = staged
+        x = self._take(stripe)
+        seg = self._segment(self._normalize(x[None]).permute(0, 3, 1, 2))[0]
+        out = seg[:, halo:halo + ch, halo:halo + cw].permute(1, 2, 0) \
+            .float().contiguous()
+        every = comm.gather_slots(out, mesh_group(mesh, axis))
+        hs, ws = plan.stitch_hw
+        canvas = every.reshape(-1, cw, out.shape[-1])[:hs, :ws]
+        return self._finish(plan, canvas, len(plan.grid), t0, keep_canvas,
+                            keep_probs)
 
     @torch.no_grad()
     def device_throughput(self, plan: SlidePlan, mode: str = "fcn",

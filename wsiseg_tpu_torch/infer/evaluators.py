@@ -12,9 +12,10 @@
 * :func:`predict_cls` — classification accuracy and F1
   (utils/eval.py:415-449)
 
-The slide evaluators run over every single-device branch of
-:func:`_pipelined_results` (grid, streamed, FCN); the mesh branches wait
-for "Multi-GPU". The patch evaluators run the Y-Net in
+The slide evaluators run over every branch of :func:`_pipelined_results`
+(grid, streamed, FCN, and each of them over a mesh, where every rank runs
+the evaluator and rank 0 alone computes the metrics, writes the PNGs and
+returns the results). The patch evaluators run the Y-Net in
 ``cfg.compute_dtype`` (:func:`~wsiseg_tpu_torch.models.ynet.compute_copy`,
 ``channels_last``), as the grid's tile forward does."""
 
@@ -33,8 +34,8 @@ from wsiseg_tpu_torch.data.patches import normalize_batch_images
 from wsiseg_tpu_torch.data.wsi_tiles import SlideCollection
 from wsiseg_tpu_torch.infer import metrics as M
 from wsiseg_tpu_torch.infer import writers
-from wsiseg_tpu_torch.infer.engine import MULTI_GPU_ITEM, \
-    DenseInferenceEngine, extract_tumor_bed, resolve_device
+from wsiseg_tpu_torch.infer.engine import DenseInferenceEngine, \
+    extract_tumor_bed, resolve_device
 from wsiseg_tpu_torch.models.ynet import YNet, compute_copy
 from wsiseg_tpu_torch.ops.threshold import pred_to_mask
 
@@ -78,15 +79,37 @@ def _pipelined_results(engine: DenseInferenceEngine,
     - otherwise the grid: slide k+1's level image is staged
       (``stage_slide``) while slide k computes.
 
-    ``mesh`` raises: the sharded routes are not ported."""
+    With ``mesh`` (JAX ``evaluators.py:70-101``) every rank iterates:
+    ``fcn`` runs the row-striped FCN (``predict_slide_fcn_sharded_rows``)
+    with slide k+1's stripe staged while slide k computes; ``streamed``
+    runs ``predict_slide_streamed_sharded``; the grid runs
+    ``predict_slide_sharded``."""
     if streamed and fcn:
         raise ValueError("fcn and streamed are mutually exclusive")
-    if mesh is not None:
-        raise NotImplementedError(f"mesh evaluation is {MULTI_GPU_ITEM}")
     items = list(collection.items())
+    if mesh is not None and fcn:
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            staged = (pool.submit(engine.stage_slide_fcn_rows, items[0][1],
+                                  mesh) if items else None)
+            for i, (name, plan) in enumerate(items):
+                nxt = (pool.submit(engine.stage_slide_fcn_rows,
+                                   items[i + 1][1], mesh)
+                       if i + 1 < len(items) else None)
+                res = engine.predict_slide_fcn_sharded_rows(
+                    plan, mesh, staged=staged.result())
+                staged = nxt
+                yield name, plan, res
+        return
     if streamed:
         for name, plan in items:
-            yield name, plan, engine.predict_slide_streamed(plan)
+            res = (engine.predict_slide_streamed_sharded(plan, mesh)
+                   if mesh is not None
+                   else engine.predict_slide_streamed(plan))
+            yield name, plan, res
+        return
+    if mesh is not None:
+        for name, plan in items:
+            yield name, plan, engine.predict_slide_sharded(plan, mesh)
         return
     if fcn:
         if not engine._fcn_fast_ok():
@@ -146,14 +169,18 @@ def predict_wsis(engine: DenseInferenceEngine, collection: SlideCollection,
     """Per slide: dense prediction, tumor-bed extraction on the engine's
     device, the metric report against the GT rasters beside the slide, and
     the color mask with the tumor bed's perimeter in white. Returns
-    {slide: metrics dict} plus '_mean_tb_iou'. The grid is the default, as
-    in JAX; the CLI defaults to FCN."""
+    {slide: metrics dict} plus '_mean_tb_iou' (with a mesh: on rank 0;
+    the other ranks return {}). The grid is the default, as in JAX; the CLI
+    defaults to FCN."""
     cfg = engine.cfg
     max_class = float(cfg.num_classes - 1)
     results = {}
     ious_tb = []
+    lead = _lead(mesh)
     for name, plan, res in _pipelined_results(engine, collection, fcn,
                                                mesh=mesh, streamed=streamed):
+        if not lead:
+            continue
         h2w2 = plan.canvas_hw
         tb_filled, tb_perim = extract_tumor_bed(res.labels,
                                                 device=engine.device)
@@ -191,10 +218,21 @@ def predict_wsis(engine: DenseInferenceEngine, collection: SlideCollection,
             f"{res.patches_per_sec:.0f} patches/s")
         results[name] = rec
 
+    if not lead:
+        return results
     mean_tb = float(np.mean(ious_tb)) if ious_tb else float("nan")
     log(f"Average tb iou: {mean_tb:.3f}")
     results["_mean_tb_iou"] = mean_tb
     return results
+
+
+def _lead(mesh) -> bool:
+    """This rank writes and reports: always on one device, rank 0 of a
+    mesh."""
+    if mesh is None:
+        return True
+    from wsiseg_tpu_torch.parallel.mesh import mesh_rank
+    return mesh_rank(mesh) == 0
 
 
 def plan_mask_resized(plan, hw) -> np.ndarray:
@@ -208,11 +246,15 @@ def predict_tumorbed(engine: DenseInferenceEngine,
                      log: Callable = print) -> Dict:
     """Heatmap + overlay artifacts per slide (reference
     utils/eval.py:155-286). The grid is the default, as in JAX; the CLI
-    defaults to FCN (``parse_eval_flags``)."""
+    defaults to FCN (``parse_eval_flags``). With a mesh, rank 0 writes and
+    returns the artifacts; the other ranks return {}."""
     cfg = engine.cfg
     results = {}
+    lead = _lead(mesh)
     for name, plan, res in _pipelined_results(engine, collection, fcn,
                                                mesh=mesh, streamed=streamed):
+        if not lead:
+            continue
         heat_pth = writers.save_heatmap(cfg, ep, name, res.heatmap)
         wsi2 = plan.slide.read_level(2)
         overlay_pth = writers.save_overlay(cfg, ep, name, wsi2, res.heatmap)

@@ -15,6 +15,13 @@ The JAX package computes dense losses class-major (a TPU lane-layout
 device, ``losses.py:48-104``); the values are the same as the plain
 formulas computed here. Its deliberate departures from the reference stay:
 jaccard's union is ``|x|+|y|-|x∩y|``, dice's ``ignore_index`` works.
+
+Under data-parallel training (inside
+:func:`~wsiseg_tpu_torch.parallel.comm.data_parallel` over several ranks)
+every reduction across samples is global, as under JAX's mesh: each
+mean's numerator and denominator (:func:`global_ratio`), each class sum, and
+OHEM's ranking (over the gathered per-pixel losses). Without a data group
+nothing changes.
 """
 
 from __future__ import annotations
@@ -25,19 +32,35 @@ import torch
 import torch.nn.functional as F
 
 from wsiseg_tpu_torch.models.decoders import resize_linear, resize_nearest
+from wsiseg_tpu_torch.parallel import comm
 
 Tensor = torch.Tensor
+
+
+def global_ratio(num: Tensor, den) -> Tensor:
+    """num / max(den, 1e-8), both summed over the data group's ranks."""
+    den = torch.as_tensor(den, dtype=num.dtype, device=num.device)
+    if comm.world() > 1:
+        num, den = comm.global_sum(torch.stack([num, den])).unbind()
+    return num / torch.clamp(den, min=1e-8)
+
+
+def global_mean(values: Tensor) -> Tensor:
+    """values.mean(), over the data group's ranks."""
+    if comm.world() > 1:
+        return global_ratio(values.sum(), float(values.numel()))
+    return values.mean()
 
 
 def _mean(values: Tensor, weights: Optional[Tensor]) -> Tensor:
     """Weighted mean over the leading (sample) axis; plain mean if None."""
     if weights is None:
-        return values.mean()
+        return global_mean(values)
     w = weights.to(values.dtype)
     while w.ndim < values.ndim:
         w = w[..., None]
-    denom = torch.clamp(w.sum() * (values.numel() / w.numel()), min=1e-8)
-    return (values * w).sum() / denom
+    return global_ratio((values * w).sum(),
+                        w.sum() * (values.numel() / w.numel()))
 
 
 def _spatial(sample_weight: Tensor, targets: Tensor, dtype) -> Tensor:
@@ -54,13 +77,14 @@ def _pick(x: Tensor, t: Tensor) -> Tensor:
 
 def _weighted(values: Tensor, sw: Optional[Tensor]) -> Tensor:
     if sw is None:
-        return values.mean()
-    return (values * sw).sum() / torch.clamp(sw.sum(), min=1e-8)
+        return global_mean(values)
+    return global_ratio((values * sw).sum(), sw.sum())
 
 
 def _class_sum(x: Tensor) -> Tensor:
-    """Sum over every dim but the class dim: (C,)."""
-    return x.sum(dim=[d for d in range(x.ndim) if d != 1])
+    """Sum over every dim but the class dim (and the data group's ranks):
+    (C,)."""
+    return comm.global_sum(x.sum(dim=[d for d in range(x.ndim) if d != 1]))
 
 
 def _one_hot(targets: Tensor, num_classes: int, dtype) -> Tensor:
@@ -88,7 +112,7 @@ def cross_entropy(logits: Tensor, targets: Tensor,
         w = w * _cw(class_weights, logits)[t.long()]
     if sample_weight is not None:
         w = w * _spatial(sample_weight, targets, logits.dtype)
-    return (nll * w).sum() / torch.clamp(w.sum(), min=1e-8)
+    return global_ratio((nll * w).sum(), w.sum())
 
 
 def bce(probs: Tensor, targets: Tensor,
@@ -122,7 +146,8 @@ def ohem(logits: Tensor, targets: Tensor, ratio: float = 0.5,
     models/losses.py:133-160): dense logits and labels are downscaled by
     ``scale_factor`` (JAX's antialiased linear and half-pixel nearest
     resizes), and CE is averaged over the hardest ``ratio`` of the
-    pixels (ranked over the whole batch, as the JAX package does)."""
+    pixels (ranked over the whole batch, as the JAX package does; under
+    data-parallel training over the global batch)."""
     if logits.ndim == 4 and scale_factor != 1.0:
         _, _, h, w = logits.shape
         nh, nw = max(1, int(h * scale_factor)), max(1, int(w * scale_factor))
@@ -131,7 +156,7 @@ def ohem(logits: Tensor, targets: Tensor, ratio: float = 0.5,
     nll = -_pick(F.log_softmax(logits, dim=1), targets)
     if sample_weight is not None:
         nll = nll * _spatial(sample_weight, targets, logits.dtype)
-    nll = nll.reshape(-1)
+    nll = comm.gather_slots(nll.reshape(-1)).reshape(-1)
     k = max(1, int(ratio * nll.shape[0]))
     return torch.topk(nll, k).values.mean()
 

@@ -9,7 +9,8 @@ names are torchvision's (``conv1``, ``bn1``, ``layer{i}.{j}.conv{k}``,
 directly and :mod:`.flax_import` maps the flax tree.
 
 Every BatchNorm of the port is :class:`BatchNorm2d`: torch's, with flax's
-train-mode update of the running variance.
+train-mode update of the running variance, and global batch statistics
+under data-parallel training.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from wsiseg_tpu_torch.parallel import comm
+
 
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` that trains as flax's ``nn.BatchNorm`` (momentum
@@ -27,12 +30,19 @@ class BatchNorm2d(nn.BatchNorm2d):
     biased variance, as torch does, but the running variance also takes
     the biased one, E[x²] − E[x]², where torch takes n/(n−1) of it. At
     the deepest layer of a small batch (8 values per channel) the two
-    differ by 8/7. Eval mode is torch's."""
+    differ by 8/7. Eval mode is torch's.
+
+    Inside :func:`~wsiseg_tpu_torch.parallel.comm.data_parallel` over
+    several ranks, the batch's moments are global, as under JAX's mesh:
+    mean and variance from the all-reduced Σx, Σx² and count, as flax's
+    ``use_fast_variance`` computes them (E[x²] − E[x]², at least 0)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
         self.num_batches_tracked.add_(1)
+        if comm.world() > 1:
+            return self._global(x)
         n = x.numel() // x.shape[1]
         if n == 1:
             return self._single(x)
@@ -45,6 +55,31 @@ class BatchNorm2d(nn.BatchNorm2d):
             kept = (1.0 - self.momentum) * self.running_var
             self.running_var.copy_((var - kept) * ((n - 1) / n) + kept)
         return y
+
+    def _global(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the data group's ranks: the global batch's
+        moments (differentiable all-reduce), flax's running update. Every
+        rank holds a row, so the global count is at least 2."""
+        c = x.shape[1]
+        dt = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(dt)
+        dims = [d for d in range(x.ndim) if d != 1]
+        count = torch.full((1,), x.numel() // c, dtype=dt, device=x.device)
+        stats = comm.global_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                                           count]))
+        n = stats[-1]
+        mean = stats[:c] / n
+        var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(
+                m * mean.detach().to(self.running_mean.dtype))
+            self.running_var.mul_(1.0 - m).add_(
+                m * var.detach().to(self.running_var.dtype))
+        shape = (1, c) + (1,) * (x.ndim - 2)
+        y = (xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
+        return (y * self.weight.view(shape) + self.bias.view(shape)) \
+            .to(x.dtype)
 
     def _single(self, x: torch.Tensor) -> torch.Tensor:
         """One value per channel, where torch refuses to train: x equals

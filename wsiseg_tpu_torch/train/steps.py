@@ -24,6 +24,14 @@ convolutions and linears under ``torch.autocast`` in
 heads widen the logits). A float64 ``compute_dtype`` runs everything in
 float64, no autocast: the oracles.
 
+Data-parallel: a step called inside
+:func:`~wsiseg_tpu_torch.parallel.comm.data_parallel` over several ranks
+takes this rank's rows of the global batch (``parallel.mesh.shard_batch``);
+the BatchNorm moments, the losses and the metrics are global, and the
+parameter gradients are all-reduced and divided by the world size
+(``parallel/comm.py``): the single-device step's math, as under JAX's
+mesh.
+
 The model trains through its native decoder for every family: the JAX
 package's train s2d tails (``unet._S2dTailBlock``,
 ``decoders._S2dLinknetTailBlock``) and ``losses.cross_entropy_s2d`` compute
@@ -39,6 +47,7 @@ import torch
 
 from wsiseg_tpu_torch import losses
 from wsiseg_tpu_torch.config import Config
+from wsiseg_tpu_torch.parallel import comm
 from wsiseg_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -72,7 +81,10 @@ def _make_update(loss_fn: Callable[[Batch], tuple], cfg: Config,
     ``_make_grads_fn``, ``steps.py:55``): BatchNorm statistics are each
     microbatch's, the running ones chaining through them; the grads are
     the mean of the microbatch grads; the aux values the mean of the
-    microbatches' values."""
+    microbatches' values. Under data parallelism each rank's rows hold its
+    share of every microbatch, in microbatch order
+    (``parallel.mesh.batch_rows``), and the grads are all-reduced once,
+    after the last backward pass."""
     ga = cfg.grad_accum if grad_accum is None else grad_accum
 
     def step(state: TrainState, batch: Batch,
@@ -103,6 +115,7 @@ def _make_update(loss_fn: Callable[[Batch], tuple], cfg: Config,
                 p.grad = torch.zeros_like(p)
             elif ga > 1:
                 p.grad.div_(ga)
+        comm.all_reduce_grads(model.parameters())
         if ga > 1:
             sums = {k: v / ga for k, v in sums.items()}
         opt.step()
@@ -184,7 +197,7 @@ def make_cls_train_step(model, cfg: Config, class_weights=None,
         w = batch.get("is_cls")
         w = torch.ones_like(out[:, 0]) if w is None else w.to(out.dtype)
         correct = (out.argmax(-1) == labels).to(out.dtype)
-        acc = (correct * w).sum() / torch.clamp(w.sum(), min=1e-8)
+        acc = losses.global_ratio((correct * w).sum(), w.sum())
         return total, {"loss": total, "acc": acc}
 
     return _make_update(loss_fn, cfg, grad_accum)
@@ -206,7 +219,7 @@ def make_hr_train_step(model, cfg: Config, class_weights=None,
         labels = batch["cls_label"]
         total = losses.cross_entropy(ens, labels,
                                      class_weights=class_weights)
-        acc = (ens.argmax(-1) == labels).to(ens.dtype).mean()
+        acc = losses.global_mean((ens.argmax(-1) == labels).to(ens.dtype))
         return total, {"loss": total, "acc": acc}
 
     return _make_update(loss_fn, cfg, grad_accum)
