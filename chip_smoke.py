@@ -64,9 +64,16 @@ just before and read just after:
 - multi-rank (phase ``[6j]``): at world size 1 over NCCL, slide-parallel
   FCN on a bench-geometry slide (K1) and row-striped FCN, each equal to
   its single-device route; then ranks sharing the card over gloo: the
-  dryrun's checks 1–4 on four, and on two the f64 data-parallel hybrid
+  dryrun's checks 1–5 on four, and on two the f64 data-parallel hybrid
   step against the single-device step and ``--mesh 2`` epochs of
-  ``train-cellularity``, ``train-p``, ``train-ssr`` and ``train-hr``;
+  ``train-cellularity``, ``train-p``, ``train-ssr`` and ``train-hr``,
+  and ``--mesh 1x2`` epochs of ``train`` and ``train-hr``;
+- spatial training (phase ``[6k]``), which launches none of the
+  kernels: four ranks sharing the card over gloo, on (2, 2) and (1, 4)
+  (data, space) meshes, each against the single-device step on the card:
+  the f64 sgd hybrid step (resnet18 Unet, 64², batch 4), the f32 step at
+  512², batch 4, and 2048² tiles, batch 2, bf16, adam, 3 steps on (1, 4)
+  with each rank's peak memory beside the single-device step's;
 - ``decode_fold(use_chain=True)`` at bench geometry (the chain kernel);
 - ``conv3x3_small`` at its documented head shape (the kernel has no
   caller in the serving path; its phase is its path).
@@ -2087,7 +2094,7 @@ def _tools_heatmaps(base: str, hm_dir: str) -> None:
                                               f"{sid}.npy_32_heatmap.png"))
 
 
-def phase_multi(dev, tmp: str, smi: str) -> int:
+def phase_multi(dev, tmp: str, smi: str):
     """Multi-rank (``[6j]``). At world size 1 over NCCL, in this process,
     at the bench geometry: slide-parallel FCN on one slide against
     ``predict_slides_fcn`` and row-striped FCN against
@@ -2095,10 +2102,12 @@ def phase_multi(dev, tmp: str, smi: str) -> int:
     exactly, with s/slide beside the single-device route. Then two ranks
     sharing the card over gloo (NCCL refuses two ranks on one device):
     the f64 sgd hybrid step data-parallel against the single-device step
-    within 1e-9·max(1, |ref|), and one ``--mesh 2`` epoch of
-    ``train-cellularity``, ``train-p``, ``train-ssr`` and ``train-hr``;
-    and the dryrun's checks 1–4 on four ranks sharing the card. Returns the K1 launches of the world-1
-    slide-parallel run."""
+    within 1e-9·max(1, |ref|), one ``--mesh 2`` epoch of
+    ``train-cellularity``, ``train-p``, ``train-ssr`` and ``train-hr``, and
+    one ``--mesh 1x2`` epoch of ``train`` and ``train-hr`` (``[6k]`` e);
+    and the dryrun's checks 1–5 on four ranks sharing the card. Returns
+    the K1 launches of the world-1 slide-parallel run, and what ``[6k]``
+    reports of these runs (d, e)."""
     from wsiseg_tpu_torch.config import default_config
     from wsiseg_tpu_torch.data.wsi_tiles import plan_slide
     from wsiseg_tpu_torch.infer.engine import (DenseInferenceEngine,
@@ -2190,10 +2199,11 @@ def phase_multi(dev, tmp: str, smi: str) -> int:
     t_card = time.time() - t0
     assert card["hybrid_f64"] <= 1e-9, \
         f"DP f64 step != single-device step: {card['hybrid_f64']}"
-    for k in ("train_cellularity", "train_p", "train_ssr", "train_hr"):
+    for k in ("train_cellularity", "train_p", "train_ssr", "train_hr",
+              "train_1x2", "train_hr_1x2"):
         assert [r["epoch"] for r in card[k]] == [1], (k, card[k])
         assert np.isfinite(card[k][0]["loss"]), (k, card[k])
-    print(f"[6j] b. ranks sharing the card (gloo): dryrun(4) checks 1-4 OK "
+    print(f"[6j] b. ranks sharing the card (gloo): dryrun(4) checks 1-5 OK "
           f"(losses {[round(x, 4) for x in dry['losses']]}, step 1 rel "
           f"{dry['step1_rel']:.3g}) in {t_dry:.1f} s; DP f64 sgd hybrid "
           f"step vs single-device rel {card['hybrid_f64']:.3g}; --mesh 2 "
@@ -2203,7 +2213,61 @@ def phase_multi(dev, tmp: str, smi: str) -> int:
           + f", in {t_card:.1f} s; "
           f"[6j] {time.time() - t_phase:.1f} s (world 1: {t_w1:.1f} s) | "
           f"{smi}", flush=True)
-    return k1
+    return k1, {"dryrun": dry, "train_1x2": card["train_1x2"],
+                "train_hr_1x2": card["train_hr_1x2"]}
+
+
+SPATIAL_F64_REL = 1e-9           # × max(1, |single device|), float64
+SPATIAL_F32_REL = 1e-4           # step 1's metrics, float32, TF32 off
+SPATIAL_BIG = 2048               # [6k] c's tile: spatial's purpose
+
+
+def phase_spatial(dev, smi: str, from_multi: dict) -> dict:
+    """Spatial training (``[6k]``), which launches none of the kernels.
+    Four ranks share the card over gloo in one group
+    (``parallel.checks.card_spatial_cases``): a. the f64 sgd hybrid step
+    (resnet18 Unet, 64², batch 4) on a (2, 2) mesh against the
+    single-device f64 step; b. resnet18 Unet hybrid at 512², batch 4, f32
+    with TF32 off, step 1's metrics on (2, 2) and (1, 4) against the
+    single-device step; c. 2048² tiles, batch 2, bf16 autocast, adam, 3
+    steps on (1, 4): finite losses, each rank's peak device memory and ms
+    a step beside the single-device step's; f. no kernel launch in any
+    rank. d (the dryrun's check 5) and e (``--mesh 1x2`` epochs of
+    ``train`` and ``train-hr``) ran in ``[6j]``'s groups
+    (``from_multi``)."""
+    from wsiseg_tpu_torch.parallel import checks
+    from wsiseg_tpu_torch.parallel.launch import run_ranks
+    t0 = time.time()
+    sp = run_ranks(checks.card_spatial_cases, 4, devices=[dev] * 4,
+                   args=(SPATIAL_BIG,))
+    big = sp["big"]
+    assert sp["f64"] <= SPATIAL_F64_REL, f"[6k] a. f64 step: {sp['f64']}"
+    for m in ("2x2", "1x4"):
+        assert sp[f"f32_{m}"] <= SPATIAL_F32_REL, \
+            f"[6k] b. f32 step on {m}: {sp[f'f32_{m}']}"
+    assert all(np.isfinite(big["losses"] + big["single_losses"])), big
+    assert sp["launches"] == 0, f"[6k] launched kernels: {sp['launches']}"
+    dry = from_multi["dryrun"]
+    e = {k: round(from_multi[k][0]["loss"], 4)
+         for k in ("train_1x2", "train_hr_1x2")}
+    print(f"[6k] spatial (4 ranks sharing the card, gloo): a. f64 sgd "
+          f"hybrid step (resnet18 Unet 64x64, batch 4) on 2x2 vs single "
+          f"device rel {sp['f64']:.3g} (limit {SPATIAL_F64_REL:g}); b. f32 "
+          f"512x512 batch 4 step 1 metrics rel 2x2 {sp['f32_2x2']:.3g}, 1x4 "
+          f"{sp['f32_1x4']:.3g} (limit {SPATIAL_F32_REL:g}; losses "
+          f"{sp['f32_2x2_loss']}, {sp['f32_1x4_loss']}); c. "
+          f"{SPATIAL_BIG}x{SPATIAL_BIG} batch 2 bf16 adam on 1x4: losses "
+          f"{[round(x, 4) for x in big['losses']]}, "
+          f"{[round(x, 1) for x in big['rank_ms']]} ms/step, peak "
+          f"{[round(x, 3) for x in big['rank_peak_gb']]} GB a rank; single "
+          f"device {big['single_ms']:.1f} ms/step, peak "
+          f"{big['single_peak_gb']:.3f} GB, losses "
+          f"{[round(x, 4) for x in big['single_losses']]}; d. dryrun check "
+          f"5 spatial step-0 loss {dry['spatial_loss']:.6f} vs DP "
+          f"{dry['losses'][0]:.6f}; e. --mesh 1x2 epoch losses {e}; f. 0 "
+          f"kernel launches; [6k] {time.time() - t0:.1f} s | {smi}",
+          flush=True)
+    return sp
 
 
 def main() -> None:
@@ -2232,7 +2296,8 @@ def main() -> None:
         phase_train(dev, tmp, smi)
         phase_hr(dev, tmp, smi)
         phase_tools(dev, tmp, smi)
-        multi = phase_multi(dev, tmp, smi)
+        multi, from_multi = phase_multi(dev, tmp, smi)
+        phase_spatial(dev, smi, from_multi)
     routes = phase_routes(dev)
     chain = phase_fold_chain(dev)
     head = phase_head(dev)

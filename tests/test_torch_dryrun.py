@@ -3,7 +3,9 @@ port's counterpart of ``__graft_entry__.dryrun_multichip`` on four gloo
 CPU ranks (four ranks make the uneven-stripe case and a real ×n): three
 data-parallel hybrid steps (finite, falling, nonzero seg loss, step 1
 equal to the single-device step), psum == rows, slide-parallel ×4 ==
-single, row-striped FCN == the chunked oracle (Unet and Linknet)."""
+single, row-striped FCN == the chunked oracle (Unet and Linknet), and
+check 5: the first step on a (2, 2) data × space mesh has the DP step's
+loss within JAX's 1e-3·max(1, loss)."""
 
 import os
 import subprocess
@@ -34,8 +36,7 @@ def test_dryrun_exits_zero(dryrun):
     "psum==rows",
     "slide-parallel fcn serving x4 == single",
     "row-striped FCN == chunked oracle (Unet + Linknet)",
-    "check 5 (spatial step == DP) waits for ROADMAP.md, queue 1, "
-    "'Multi-GPU, spatial'"])
+    "check 5 OK: spatial (2x2) step-0 loss"])
 def test_dryrun_reports_each_check(dryrun, phrase):
     assert phrase in dryrun.stdout, dryrun.stdout
 

@@ -589,15 +589,21 @@ def test_cuda_default_raises_without_a_card(tmp_path, cfg, port_model,
             evaluators.predict_reg(port_model, cfg, [_batch(1)])
 
 
-def test_cli_eval_sharded_names_multi_gpu(tmp_path):
+def test_cli_eval_sharded_names_multi_gpu(tmp_path, monkeypatch):
     """``eval --sharded --mesh 2`` over two gloo CPU ranks reports rank
     0's metrics (every key, the tumor-bed IoU) and writes the color mask;
-    a data × spatial ``--mesh 2x2`` raises naming "Multi-GPU, spatial",
+    a data × spatial ``--mesh 2x2`` serves over its four ranks on one
+    data dim, as JAX's ``make_eval_mesh`` does (the spawn stood in for),
     and on the CPU ``--sharded`` without ``--mesh N`` asks for it."""
     from wsiseg_tpu_torch.__main__ import main
-    with pytest.raises(NotImplementedError, match="Multi-GPU, spatial"):
-        main(["eval", "--sharded", "--mesh", "2x2", "--device", "cpu",
-              "--raw_val_pth", "/nonexistent"])
+    from wsiseg_tpu_torch.cli import eval as eval_cli
+    asked = []
+    with monkeypatch.context() as mp:
+        mp.setattr(eval_cli, "spawn_ranks", lambda n, on, fn, **kw:
+                   asked.append((n, fn is eval_cli._eval)) or {})
+        assert main(["eval", "--sharded", "--mesh", "2x2", "--device",
+                     "cpu", "--raw_val_pth", "/nonexistent"]) == {}
+    assert asked == [(4, True)]
     slides = _npy_slide_dir(tmp_path)
     out = tmp_path / "out"
     with pytest.raises(ValueError, match="--mesh N"):

@@ -4,9 +4,8 @@ on a synthetic 32² gt.npy store: the loss falls, checkpoints are written
 and resume at epoch + 1, the device epoch cache trains, and the hybrid
 trainer's whole-slide validation after an epoch equals a fresh engine on
 that epoch's checkpoint (the engine's weights are refreshed between
-validations). Without a card the trainers raise, ``--mesh 2`` raises for
-want of two cards, and ``--mesh 2x2`` (data × spatial) raises
-``NotImplementedError`` naming the "Multi-GPU, spatial" item."""
+validations). Without a card the trainers raise, and ``--mesh 2`` and
+``--mesh 2x2`` (data × spatial) raise for want of two and four cards."""
 
 import os
 
@@ -134,16 +133,16 @@ def test_train_ssr(tmp_path, monkeypatch):
 @pytest.mark.parametrize("cmd", ["train", "train-cellularity", "train-p",
                                  "train-ssr"])
 def test_trainers_default_to_cuda_and_refuse_mesh(tmp_path, store, cmd):
-    """Without a card the default raises, ``--mesh 2`` on ``cuda`` raises
-    for want of two cards (no CPU fallback), and ``--mesh 2x2`` (data ×
-    spatial) is refused by name. (``--mesh 2 --device cpu`` trains over
-    gloo ranks: tests/test_torch_dp_training.py.)"""
+    """Without a card the default raises, and ``--mesh 2`` and ``--mesh
+    2x2`` (data × spatial) on ``cuda`` raise for want of two and four
+    cards (no CPU fallback). (``--mesh 2 --device cpu`` trains over gloo
+    ranks: tests/test_torch_dp_training.py; ``--mesh 2x2``:
+    tests/test_torch_spatial_training.py.)"""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="--device cpu"):
         main([cmd] + _args(store, tmp_path))
     with pytest.raises(RuntimeError, match="2 visible cards"):
         main([cmd, "--mesh", "2"] + _args(store, tmp_path))
-    with pytest.raises(NotImplementedError, match="Multi-GPU, spatial"):
-        main([cmd, "--device", "cpu", "--mesh", "2x2"] + _args(store,
-                                                                tmp_path))
+    with pytest.raises(RuntimeError, match="4 visible cards"):
+        main([cmd, "--mesh", "2x2"] + _args(store, tmp_path))

@@ -122,13 +122,16 @@ def hybrid_batch(seed=3, b=4, nc=4, tile=TILE):
     }
 
 
-def jax_step(kind, jcfg, batch, grad_accum=1, seed=0, **step_kw):
+def jax_step(kind, jcfg, batch, grad_accum=1, seed=0, variables=None,
+             **step_kw):
     """One float64 JAX step of ``kind`` ('hybrid', 'seg' or 'cls') from
-    :func:`random_variables` (``seed``). Returns (the variables, JAX
-    metrics, JAX new state as a port state_dict)."""
+    :func:`random_variables` (``seed``), or from ``variables`` as given.
+    Returns (the variables, JAX metrics, JAX new state as a port
+    state_dict)."""
     with jax_f64():
         model = jax_build_ynet(jcfg)
-        variables = random_variables(model, seed)
+        if variables is None:
+            variables = random_variables(model, seed)
         tx = jax_build_optimizer(jcfg)
         jstate = JaxTrainState.create(variables, tx)
         if kind == "hybrid":

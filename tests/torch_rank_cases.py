@@ -6,8 +6,9 @@ seeded inputs and returning plain numbers and numpy arrays (rank 0's).
 A spawned rank imports the module of its function, so this module
 imports nothing of JAX (the test modules do, and set ``XLA_FLAGS``): only
 torch, numpy and the port. ``tests/test_torch_parallel.py``,
-``test_torch_dp_training.py``, ``test_torch_sharded_inference.py`` and
-``test_torch_engine.py`` assert on its results.
+``test_torch_dp_training.py``, ``test_torch_spatial_training.py``,
+``test_torch_sharded_inference.py`` and ``test_torch_engine.py`` assert
+on its results.
 
 Differences are reported as the largest over every rank (each rank holds
 its own replica and its own single-device reference).
@@ -15,9 +16,11 @@ its own replica and its own single-device reference).
 
 from __future__ import annotations
 
+import copy
 import functools
 import os
 import sys
+import time
 from typing import Callable, Dict
 
 import numpy as np
@@ -27,13 +30,14 @@ from wsiseg_tpu_torch import losses
 from wsiseg_tpu_torch.config import default_config
 from wsiseg_tpu_torch.parallel import comm
 from wsiseg_tpu_torch.parallel.checks import (CW, F64, SW, hybrid_batch,
-                                              hybrid_step, max_over_ranks,
-                                              rank_mesh, rel_diff,
-                                              replica_spread, seeded_ynet,
-                                              state_diff, step_pair,
-                                              train_cfg, ynet_f64)
+                                              hybrid_step, in_mesh, is_owner,
+                                              max_over_ranks, rank_mesh,
+                                              rel_diff, replica_spread,
+                                              seeded_ynet, single_step,
+                                              spatial_mesh, state_diff,
+                                              step_pair, train_cfg, ynet_f64)
 from wsiseg_tpu_torch.parallel.mesh import (batch_rows, mesh_group,
-                                            mesh_rank, mesh_size,
+                                            mesh_index, mesh_rank, mesh_size,
                                             replicate_tree, shard_batch)
 
 
@@ -180,11 +184,18 @@ def _hr_step(model, cfg, ga):
     return make_hr_train_step(model, cfg, class_weights=CW, grad_accum=ga)
 
 
-def _hr_net(cfg, device):
+@functools.lru_cache(maxsize=None)
+def _hr_init(arch: str, num_classes: int, num_patches: int):
     from wsiseg_tpu_torch.models.ensemble import MultiPatchResNet
     torch.manual_seed(0)
-    return MultiPatchResNet(cfg.arch_encoder, cfg.num_classes,
-                            num_patches=2).to(device, F64)
+    return MultiPatchResNet(arch, num_classes, num_patches=num_patches)
+
+
+def _hr_net(cfg, device, num_patches: int = 2):
+    """The seed-0 HR ensemble in f64, built once a rank (its ``fc_1`` at
+    16 patches has 33.5 M parameters)."""
+    return copy.deepcopy(_hr_init(cfg.arch_encoder, cfg.num_classes,
+                                  num_patches)).to(device, F64)
 
 
 def _given_ynet(state_dict, cfg, device):
@@ -201,6 +212,24 @@ def seg_batch(rs=None) -> Dict:
     rs = np.random.RandomState(11) if rs is None else rs
     return {"image": rs.randn(4, 32, 32, 3),
             "seg_label": rs.randint(0, 4, (4, 32, 32)).astype(np.int64)}
+
+
+def publish_state(state_dict, path: str) -> None:
+    """Write ``state_dict`` to ``path`` whole (a rename after the write),
+    for :func:`await_state` in the ranks."""
+    torch.save(state_dict, path + ".part")
+    os.replace(path + ".part", path)
+
+
+def await_state(path: str, timeout: float = 600.0):
+    """The state_dict :func:`publish_state` writes to ``path``, once it is
+    there (the test process computes it while the ranks start)."""
+    t0 = time.time()
+    while not os.path.exists(path):
+        if time.time() - t0 > timeout:
+            raise TimeoutError(f"no state at {path} after {timeout} s")
+        time.sleep(0.05)
+    return torch.load(path)
 
 
 def ohem_batch(given) -> Dict:
@@ -293,38 +322,51 @@ def _epoch_batches(cfg, n_batches: int = 2, seed: int = 9):
     return out
 
 
-def _trainer_epoch(mesh, device) -> Dict[str, object]:
-    """One ``Trainer`` epoch with the jitter on one device and
-    data-parallel (each rank fed its rows through ``make_batches(rows=)``):
-    history and parameters; and the refusal of a global batch that does
-    not divide over the ranks."""
+def _epoch(mesh, device, n_batches: int, log_fn=None):
+    """One ``Trainer`` epoch of the seed-0 f64 Unet on
+    :func:`_epoch_batches`, with the jitter, over ``mesh`` (each rank fed
+    its rows through ``make_batches(rows=)``, and on a (data, space) mesh
+    keeping its stripe) or on one device (None)."""
     from wsiseg_tpu_torch.cli.common import make_preprocess
     from wsiseg_tpu_torch.optim import build_optimizer
     from wsiseg_tpu_torch.train.loop import Trainer
     from wsiseg_tpu_torch.train.state import TrainState
-    dev = torch.device(device)
     cfg = train_cfg(num_epoch=1, start_epoch=1)
-    batches = _epoch_batches(cfg)
+    batches = _epoch_batches(cfg, n_batches)
 
     def make_batches(rows=None):
         if rows is None:
             return iter(batches)
         return ({k: v[rows(len(v))] for k, v in b.items()} for b in batches)
 
-    def epoch(m):
-        model = ynet_f64(cfg, dev)
-        state = TrainState(model, build_optimizer(cfg, model.parameters()))
-        tr = Trainer(cfg, state, hybrid_step(model, cfg, 1),
-                     make_batches=make_batches,
-                     preprocess_batch=make_preprocess(cfg),
-                     log_fn=lambda s: None, mesh=m)
-        tr.run()
-        return tr
+    model = ynet_f64(cfg, torch.device(device))
+    state = TrainState(model, build_optimizer(cfg, model.parameters()))
+    tr = Trainer(cfg, state, hybrid_step(model, cfg, 1),
+                 make_batches=make_batches,
+                 preprocess_batch=make_preprocess(cfg),
+                 log_fn=log_fn or (lambda s: None), mesh=mesh)
+    tr.run()
+    return tr
 
-    got = epoch(mesh)
+
+def _trainer_epoch(mesh, device, n_batches: int = 2,
+                   reference=None) -> Dict[str, object]:
+    """:func:`_epoch` over ``mesh`` against the same epoch on one device,
+    which the mesh's rank 1 computes (unless it passes it as
+    ``reference``): history and parameters; the ranks that logged; and
+    the refusal of a global batch that does not divide over the (data)
+    ranks."""
+    from wsiseg_tpu_torch.optim import build_optimizer
+    from wsiseg_tpu_torch.train.loop import Trainer
+    from wsiseg_tpu_torch.train.state import TrainState
+    dev = torch.device(device)
+    logs = []
+    got = _epoch(mesh, device, n_batches, logs.append)
+    logged = comm.gather_slots(torch.tensor([float(len(logs))], device=dev),
+                               comm.as_group(mesh)).reshape(-1).tolist()
     worst, keys_differ = replica_spread(got.state.model, mesh, dev), 0.0
-    if mesh_rank(mesh) == 1 % mesh_size(mesh):     # the reference's rank
-        ref = epoch(None)
+    if mesh_index(mesh) == 1:                    # the reference's rank
+        ref = reference or _epoch(None, device, n_batches)
         h_ref = {k: v for k, v in ref.history[0].items()
                  if k != "patches_per_sec"}
         h_got = {k: v for k, v in got.history[0].items()
@@ -334,7 +376,8 @@ def _trainer_epoch(mesh, device) -> Dict[str, object]:
                     + [abs(h_got[k] - v) / max(1.0, abs(v))
                        for k, v in h_ref.items()])
     out = {"trainer_history_keys": max_over_ranks(keys_differ, dev) == 0,
-           "trainer_epoch": max_over_ranks(worst, dev)}
+           "trainer_epoch": max_over_ranks(worst, dev),
+           "trainer_logs": logged}
     odd = train_cfg(batch_size=2 * mesh_size(mesh) + 1)
     model = ynet_f64(odd, dev)
     try:
@@ -345,6 +388,114 @@ def _trainer_epoch(mesh, device) -> Dict[str, object]:
         out["indivisible_raises"] = False
     except ValueError as e:
         out["indivisible_raises"] = "divide evenly" in str(e)
+    return out
+
+
+# ---- spatial training ----
+
+
+def _pair_mesh(ranks):
+    """A (1, 2) ("data", "space") mesh over two given ranks of the group
+    (every rank of the group must call it, as ``make_mesh``)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    mesh = DeviceMesh("cpu", torch.tensor([ranks]),
+                      mesh_dim_names=("data", "space"))
+    mesh.flat_group = torch.distributed.new_group(ranks=list(ranks))
+    return mesh
+
+
+def spatial_training_cases(device, given, store: str = "",
+                           out_dir: str = "") -> Dict[str, object]:
+    """Every spatial training case against the single-device step (f64,
+    sgd) on a group of four: the largest relative difference of each, on a
+    (2, 2) and a (1, 4) mesh over the four ranks, and on two (1, 2)
+    meshes over ranks 0–1 and 2–3, which run their cases at once. The
+    ``given`` f64 Unet state_dict (or the path :func:`publish_state`
+    writes it to; the tests hold it against JAX's step from the same flax
+    variables) starts the ``hybrid_2x2`` and ``seg_ohem`` cases, which
+    also return the mesh's metrics and new state (``<case>_sp``). With a
+    gt.npy ``store``, then ``train --mesh 2x2`` in this group (as under
+    ``torchrun``), one epoch into ``out_dir``: its history
+    (``train_cli``). Needs a world of 4."""
+    dev = torch.device(device)
+    m22, m14 = spatial_mesh(dev, 2, 2), spatial_mesh(dev, 1, 4)
+    lo, hi = _pair_mesh((0, 1)), _pair_mesh((2, 3))
+    rs = np.random.RandomState(12)
+    seg = seg_batch(rs)
+    cls = {"image": rs.randn(4, 32, 32, 3), "cls_label": np.array([1, 3, -1, 0]),
+           "is_cls": np.array([1.0, 1.0, 0.0, 1.0])}
+    hr = {"image": rs.randn(2, 16, 32, 32, 3), "cls_label": np.array([2, 1])}
+    # (case, mesh, model, step, config, batch, grad_accum, owner): each
+    # owner computes its single-device references before any case runs on
+    # a mesh, the owners chosen so that every rank's references and mesh
+    # cases take about as long
+    specs = [
+        ("hybrid_1x4", m14, ynet_f64, hybrid_step, train_cfg(),
+         hybrid_batch("crss"), 1, 0),
+        # 32² over 2 space ranks: a stripe of 16 rows, level 5 gathers;
+        # batch 8 gives c5's BatchNorm 8 values a channel (at batch 2 it
+        # has two, and a 1e-15 relative change of the input moves the
+        # single-device f64 state by 1e-2)
+        ("resnet50_1x2", lo, ynet_f64, hybrid_step,
+         train_cfg(arch_encoder="resnet50", batch_size=8),
+         hybrid_batch("crsscsrs", seed=6), 1, 0),
+        ("seg_dice", lo, ynet_f64, _seg_step, train_cfg(loss="dice"), seg,
+         1, 0),
+        ("seg_Linknet", lo, ynet_f64, _seg_step,
+         train_cfg(model_name="Linknet"), seg, 1, 1),
+        ("seg_FPN", lo, ynet_f64, _seg_step, train_cfg(model_name="FPN"),
+         seg, 1, 1),
+        ("hr", hi, functools.partial(_hr_net, num_patches=16), _hr_step,
+         train_cfg(batch_size=2), hr, 1, 0),
+        ("cls", hi, ynet_f64, _cls_step, train_cfg(), cls, 1, 0),
+        ("seg_PSPNet", hi, ynet_f64, _seg_step,
+         train_cfg(model_name="PSPNet"), seg, 1, 1),
+        ("grad_accum2", hi, ynet_f64, hybrid_step,
+         train_cfg(batch_size=8, grad_accum=2),
+         hybrid_batch("csrscssr", seed=5), 2, 1)]
+    refs = {case: single_step(model, step, cfg, batch, dev, ga)
+            for case, mesh, model, step, cfg, batch, ga, owner in specs
+            if is_owner(mesh, owner)}
+    epoch_ref = _epoch(None, dev, 1) if mesh_index(m22) == 1 else None
+    if isinstance(given, str):
+        given = await_state(given)
+    made = functools.partial(_given_ynet, given)
+    given_specs = [
+        ("hybrid_2x2", m22, made, hybrid_step,
+         train_cfg(tile_w=64, tile_h=64), hybrid_batch("crss", tile=64), 1,
+         3),
+        ("seg_ohem", m22, made, _seg_step, train_cfg(loss="ohem"),
+         ohem_batch(given), 1, 1)]
+    refs.update({case: single_step(model, step, cfg, batch, dev, ga)
+                 for case, mesh, model, step, cfg, batch, ga, owner
+                 in given_specs if is_owner(mesh, owner)})
+    specs = given_specs + specs
+    out: Dict[str, object] = {}
+    for case, mesh, model, step, cfg, batch, ga, owner in specs:
+        if not in_mesh(mesh):
+            continue
+        worst, net, metrics = step_pair(mesh, dev, model, step, cfg, batch,
+                                        ga, owner, refs.pop(case, None))
+        out[case] = worst
+        if model is made:
+            out[f"{case}_sp"] = (metrics, {
+                n: t.detach().cpu().numpy()
+                for n, t in net.state_dict().items()})
+    # the (1, 2) cases of ranks 2–3, to rank 0's results
+    halves = {case: out[case] for case, mesh, *_ in specs if mesh is hi
+              and in_mesh(mesh)}
+    for every in comm.gather_objects(halves, torch.distributed.group.WORLD):
+        for case, worst in every.items():
+            out.setdefault(case, worst)
+    out.update(_trainer_epoch(m22, device, n_batches=1, reference=epoch_ref))
+    if store:
+        from wsiseg_tpu_torch.__main__ import main
+        out["train_cli"] = main([
+            "train", "--device", dev.type, "--mesh", "2x2",
+            "--train_image_pth", store, "--tile_w", "32", "--tile_h", "32",
+            "--batch_size", "8", "--num_epoch", "1", "--save_models", "1",
+            "--model_save_pth", out_dir, "--raw_val_pth", "",
+            "--compute_dtype", "float32"]).history
     return out
 
 

@@ -19,7 +19,7 @@ import torch.distributed as dist
 
 from wsiseg_tpu_torch.config import Config
 from wsiseg_tpu_torch.data.patches import normalize_batch_images
-from wsiseg_tpu_torch.infer.engine import SPATIAL_ITEM, resolve_device
+from wsiseg_tpu_torch.infer.engine import resolve_device
 from wsiseg_tpu_torch.models import ensemble
 from wsiseg_tpu_torch.models.torch_import import apply_pretrained
 from wsiseg_tpu_torch.models.ynet import YNet, init_ynet
@@ -142,14 +142,14 @@ def mesh_ranks(spec: str, device="cuda") -> int:
     """The ranks a ``--mesh`` value asks for (JAX ``make_train_mesh``):
     ``""``, ``none``, ``0`` and ``1`` one device; ``all`` every visible
     card (on ``cuda`` only: the CPU's ranks are given as ``N``); ``N`` N
-    ranks. ``NxM`` (data × spatial) raises ``NotImplementedError``."""
+    ranks; ``NxM`` N·M ranks, N-way data × M-way space (``1x1`` one
+    device)."""
     spec = (spec or "").strip().lower()
     if spec in ("", "none", "0", "1"):
         return 1
-    if "x" in spec:
-        raise NotImplementedError(
-            f"--mesh {spec}: spatial training (data × space) is "
-            f"{SPATIAL_ITEM}")
+    grid = _grid(spec)
+    if grid:
+        return grid[0] * grid[1]
     if spec == "all":
         if torch.device(device).type != "cuda":
             raise ValueError("--mesh all counts the visible cards; with "
@@ -158,24 +158,38 @@ def mesh_ranks(spec: str, device="cuda") -> int:
     return int(spec)
 
 
-def _mesh_of(cfg: Config, n: int, device):
+def _grid(spec: str) -> Optional[Tuple[int, int]]:
+    """(N, M) of an ``NxM`` ``--mesh`` value; None for any other."""
+    spec = (spec or "").strip().lower()
+    return tuple(int(v) for v in spec.split("x")) if "x" in spec else None
+
+
+def _mesh_of(cfg: Config, n: int, device, shape=None, axes=None):
     from wsiseg_tpu_torch.parallel.mesh import make_mesh
     if dist.get_world_size() != n:
         raise ValueError(f"--mesh asks for {n} ranks; the process group "
                          f"has {dist.get_world_size()}")
-    return make_mesh(devices=[resolve_device(device)] * n, shape=(n,),
-                     axes=(cfg.mesh_axes[0],))
+    return make_mesh(devices=[resolve_device(device)] * n,
+                     shape=shape or (n,), axes=axes or (cfg.mesh_axes[0],))
 
 
 def make_train_mesh(cfg: Config, n: int, device="cuda"):
-    """The trainers' data mesh over this process group's ``n`` ranks
-    (:func:`mesh_ranks`), each on ``device``; None for one device."""
-    return None if n <= 1 else _mesh_of(cfg, n, device)
+    """The trainers' mesh over this process group's ``n`` ranks
+    (:func:`mesh_ranks`), each on ``device``: the data mesh, or for
+    ``--mesh NxM`` the (``cfg.mesh_axes[0]``, ``space``) mesh of JAX's
+    ``make_train_mesh`` (``common.py:166-171``); None for one device."""
+    if n <= 1:
+        return None
+    grid = _grid(cfg.mesh)
+    if grid:
+        return _mesh_of(cfg, n, device, grid, (cfg.mesh_axes[0], "space"))
+    return _mesh_of(cfg, n, device)
 
 
 def make_eval_mesh(cfg: Config, n: int, device="cuda"):
     """``--sharded``'s mesh over this process group's ``n`` ranks, each on
-    ``device`` (JAX: every device)."""
+    ``device``: one data dim whatever ``--mesh``'s shape, as JAX's
+    ``make_eval_mesh`` (``common.py:150-152``) takes every device."""
     return _mesh_of(cfg, n, device)
 
 

@@ -10,8 +10,11 @@ gathers each step's rows there
 (:mod:`~wsiseg_tpu_torch.train.device_cache`).
 
 Runs on the CUDA device unless ``--device cpu`` asks for the CPU; without
-a CUDA device the default raises ``RuntimeError``. ``--mesh`` raises
-``NotImplementedError`` (ROADMAP.md, Multi-GPU).
+a CUDA device the default raises ``RuntimeError``. ``--mesh N`` trains
+data-parallel over N ranks, ``--mesh NxM`` over an N-way data × M-way
+space mesh (each rank a stripe of every tile; ``parallel/spatial.py``);
+on ``cuda`` one card a rank, raising when fewer are visible, and gloo
+ranks with ``--device cpu``.
 """
 
 from __future__ import annotations

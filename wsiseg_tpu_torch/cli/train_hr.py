@@ -9,8 +9,11 @@ ratios; validation through ``regions.validate_hr`` over
 ``--val_hr_image_pth`` (train_hr.py:74 → utils/regiontools.py:144-204).
 
 Runs on the CUDA device unless ``--device cpu`` asks for the CPU; without
-a CUDA device the default raises ``RuntimeError``. ``--mesh`` raises
-``NotImplementedError`` (ROADMAP.md, Multi-GPU).
+a CUDA device the default raises ``RuntimeError``. ``--mesh N`` trains
+data-parallel over N ranks, ``--mesh NxM`` over an N-way data × M-way
+space mesh (each rank a stripe of every tile; ``parallel/spatial.py``);
+on ``cuda`` one card a rank, raising when fewer are visible, and gloo
+ranks with ``--device cpu``.
 """
 
 from __future__ import annotations

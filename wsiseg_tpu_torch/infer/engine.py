@@ -87,8 +87,6 @@ from wsiseg_tpu_torch.ops.threshold import threshold_probs_planar
 from wsiseg_tpu_torch.parallel import comm
 from wsiseg_tpu_torch.parallel.mesh import mesh_group, mesh_rank, mesh_size
 
-SPATIAL_ITEM = "not ported yet: ROADMAP.md, queue 1, 'Multi-GPU, spatial'"
-
 #: Peak device bytes per padded pixel of the fused whole-image route, for
 #: the widest family one card serves: resnet50 Linknet, 6.7607 GB around
 #: ``device_throughput`` at one 3072×4096 slide = 537.3 B/px (resnet18

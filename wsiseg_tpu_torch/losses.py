@@ -21,7 +21,11 @@ Under data-parallel training (inside
 every reduction across samples is global, as under JAX's mesh: each
 mean's numerator and denominator (:func:`global_ratio`), each class sum, and
 OHEM's ranking (over the gathered per-pixel losses). Without a data group
-nothing changes.
+nothing changes. Under spatial training the group is every rank of the
+(data, space) mesh: dense logits are stripes, each pixel on one rank;
+values that every space rank computes alike (the heads' logits) enter
+each ratio's numerator and denominator once per space rank, and the
+factors cancel.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from wsiseg_tpu_torch.models.decoders import resize_linear, resize_nearest
-from wsiseg_tpu_torch.parallel import comm
+from wsiseg_tpu_torch.parallel import comm, spatial
 
 Tensor = torch.Tensor
 
@@ -147,7 +151,14 @@ def ohem(logits: Tensor, targets: Tensor, ratio: float = 0.5,
     ``scale_factor`` (JAX's antialiased linear and half-pixel nearest
     resizes), and CE is averaged over the hardest ``ratio`` of the
     pixels (ranked over the whole batch, as the JAX package does; under
-    data-parallel training over the global batch)."""
+    data-parallel training over the global batch). On stripes (spatial
+    training) the logits and labels are gathered over the space group
+    first, and each space rank ranks its 1/M of the resized pixels, so
+    that the ranking sees each pixel once."""
+    sp = comm.space() if logits.ndim == 4 else None
+    if sp is not None:
+        logits, targets = spatial.gather(logits, sp), \
+            spatial.gather(targets, sp)
     if logits.ndim == 4 and scale_factor != 1.0:
         _, _, h, w = logits.shape
         nh, nw = max(1, int(h * scale_factor)), max(1, int(w * scale_factor))
@@ -156,9 +167,17 @@ def ohem(logits: Tensor, targets: Tensor, ratio: float = 0.5,
     nll = -_pick(F.log_softmax(logits, dim=1), targets)
     if sample_weight is not None:
         nll = nll * _spatial(sample_weight, targets, logits.dtype)
-    nll = comm.gather_slots(nll.reshape(-1)).reshape(-1)
-    k = max(1, int(ratio * nll.shape[0]))
-    return torch.topk(nll, k).values.mean()
+    nll = nll.reshape(-1)
+    total = nll.shape[0] * comm.world()
+    if sp is not None:
+        # this rank's share, padded with -inf (never among the top k)
+        total //= sp.size
+        share = -(-nll.shape[0] // sp.size)
+        part = nll[sp.rank * share:(sp.rank + 1) * share]
+        nll = F.pad(part, (0, share - part.shape[0]), value=float("-inf"))
+    every = comm.gather_slots(nll).reshape(-1)
+    k = max(1, int(ratio * total))
+    return torch.topk(every, k).values.mean()
 
 
 def conditional_entropy_ce(logits: Tensor, targets: Tensor,

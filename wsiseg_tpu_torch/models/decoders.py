@@ -26,6 +26,12 @@ Resizes follow ``jax.image.resize``, not smp:
 
 The port trains Linknet through this decoder: the JAX package's train-only
 ``_S2dLinknetTailBlock`` is not ported (ROADMAP.md §3).
+
+Under spatial training every conv runs on stripes where
+``parallel.spatial``'s plan holds its level so, and a map is split where
+it reaches such a level from a gathered one; each decoder names the
+level of its output (``out_level``; PSPNet's None: its pooled bins are
+global, so it gathers c5 and runs on whole maps).
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ from torch import nn
 
 from wsiseg_tpu_torch.models.heads import at_least_f32
 from wsiseg_tpu_torch.models.resnet import BatchNorm2d
+from wsiseg_tpu_torch.parallel import spatial
+from wsiseg_tpu_torch.parallel.spatial import Conv2d
 
 PSP_BINS = (1, 2, 3, 6)
 FPN_UPSAMPLES = {5: 3, 4: 2, 3: 1, 2: 0}   # nearest 2× steps per seg block
@@ -120,25 +128,30 @@ def psp_pool(c5: torch.Tensor, nbins: int) -> torch.Tensor:
 
 def conv_bn(cin: int, cout: int, k: int) -> nn.Sequential:
     """smp's ``Sequential(conv, BatchNorm)`` without the conv's bias."""
-    return nn.Sequential(nn.Conv2d(cin, cout, k, 1, k // 2, bias=False),
+    return nn.Sequential(Conv2d(cin, cout, k, 1, k // 2, bias=False),
                          BatchNorm2d(cout))
 
 
 class FPNSegBlock(nn.Module):
     """max(n_up, 1) × (3×3 conv + BN + ReLU), each followed by a nearest
-    2× while upsamples remain (JAX ``FPNDecoder.seg_block``)."""
+    2× while upsamples remain (JAX ``FPNDecoder.seg_block``); its input is
+    pyramid level ``level``."""
 
-    def __init__(self, cin: int, n_up: int, ch: int = 128):
+    def __init__(self, cin: int, n_up: int, ch: int = 128, level: int = 2):
         super().__init__()
         self.n_up = n_up
+        self.level = level
         for k in range(max(n_up, 1)):
             setattr(self, f"conv{k}", conv_bn(cin if k == 0 else ch, ch, 3))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, levels=None) -> torch.Tensor:
         for k in range(max(self.n_up, 1)):
-            x = F.relu(getattr(self, f"conv{k}")(x))
+            lvl = self.level - k
+            with spatial.at(levels, lvl):
+                x = F.relu(getattr(self, f"conv{k}")(x))
             if k < self.n_up:
                 x = resize_nearest(x, 2 * x.shape[2], 2 * x.shape[3])
+                x = spatial.settle(x, levels, lvl, lvl - 1)
         return x
 
 
@@ -148,21 +161,28 @@ class FPNDecoder(nn.Module):
     W/4) merge; the head's 1×1 conv and ×4 bilinear follow on the
     Y-Net."""
 
+    out_level = 2
+
     def __init__(self, encoder_channels: Sequence[int],
                  pyramid_channels: int = 256,
                  segmentation_channels: int = 128):
         super().__init__()
         for n, c in zip((5, 4, 3, 2), encoder_channels[:4]):
-            setattr(self, f"lat{n}", nn.Conv2d(c, pyramid_channels, 1))
+            setattr(self, f"lat{n}", Conv2d(c, pyramid_channels, 1))
             setattr(self, f"seg{n}", FPNSegBlock(
-                pyramid_channels, FPN_UPSAMPLES[n], segmentation_channels))
+                pyramid_channels, FPN_UPSAMPLES[n], segmentation_channels,
+                level=n))
 
     def forward(self, features: List[torch.Tensor]) -> torch.Tensor:
-        p, out = None, None
+        p, out, levels = None, None, spatial.levels_of(features)
         for n, c in zip((5, 4, 3, 2), features[:4]):
             lat = getattr(self, f"lat{n}")(c)
-            p = lat if p is None else lat + resize_nearest(p, *c.shape[2:])
-            s = getattr(self, f"seg{n}")(p)
+            if p is not None:
+                h = spatial.source_rows(c.shape[2], levels, n + 1, n)
+                lat = lat + spatial.settle(resize_nearest(p, h, c.shape[3]),
+                                           levels, n + 1, n)
+            p = lat
+            s = getattr(self, f"seg{n}")(p, levels)
             out = s if out is None else out + s
         return out
 
@@ -185,15 +205,19 @@ class PSPDecoder(nn.Module):
         self.fuse = conv_bn(in_channels + len(self.bins) * branch,
                             fuse_channels, 3)
 
+    out_level = None
+
     def forward(self, features: List[torch.Tensor]) -> torch.Tensor:
-        c5 = features[0]
+        levels = spatial.levels_of(features)
+        c5 = spatial.settle(features[0], levels, 5, None)
         h, w = c5.shape[2:]
         outs = [c5]
-        for bi, nbins in enumerate(self.bins):
-            x = psp_pool(c5, nbins).to(c5.dtype)
-            x = F.relu(getattr(self, f"psp{bi}")(x))
-            outs.append(resize_linear(x, h, w))
-        return F.relu(self.fuse(torch.cat(outs, dim=1)))
+        with spatial.at(levels, None):
+            for bi, nbins in enumerate(self.bins):
+                x = psp_pool(c5, nbins).to(c5.dtype)
+                x = F.relu(getattr(self, f"psp{bi}")(x))
+                outs.append(resize_linear(x, h, w))
+            return F.relu(self.fuse(torch.cat(outs, dim=1)))
 
 
 class LinknetDecoderBlock(nn.Module):
@@ -202,18 +226,23 @@ class LinknetDecoderBlock(nn.Module):
     ``decoders.py:149``; upsample + conv, not smp's ConvTranspose2d:
     PARITY.md, "Deliberate narrowings")."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, level: int = 0):
         super().__init__()
         mid = max(cin // 4, 1)
+        self.level = level          # the pyramid level it makes
         self.conv1 = conv_bn(cin, mid, 1)
         self.conv2 = conv_bn(mid, mid, 3)
         self.conv3 = conv_bn(mid, cout, 1)
 
-    def forward(self, x: torch.Tensor,
-                skip: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = F.relu(self.conv1(x))
+    def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None,
+                levels=None) -> torch.Tensor:
+        """``levels``: the encoder's plan (``spatial.Pyramid``), under
+        spatial training."""
+        x = F.relu(self.conv1(x))       # 1×1: no halo in either layout
         x = resize_nearest(x, 2 * x.shape[2], 2 * x.shape[3])
-        x = F.relu(self.conv3(F.relu(self.conv2(x))))
+        x = spatial.settle(x, levels, self.level + 1, self.level)
+        with spatial.at(levels, self.level):
+            x = F.relu(self.conv3(F.relu(self.conv2(x))))
         return x if skip is None else x + skip.to(x.dtype)
 
 
@@ -223,16 +252,19 @@ class LinknetDecoder(nn.Module):
     ``decoders.py:234``, eval branch). Returns the (B, 32, H, W)
     activation the Y-Net's 3×3 head reads."""
 
+    out_level = 0
+
     def __init__(self, encoder_channels: Sequence[int]):
         super().__init__()
         outs = list(encoder_channels[1:]) + [32]
         ins = [encoder_channels[0]] + outs[:-1]
         self.blocks = nn.ModuleList(
-            LinknetDecoderBlock(i, o) for i, o in zip(ins, outs))
+            LinknetDecoderBlock(i, o, level=4 - k)
+            for k, (i, o) in enumerate(zip(ins, outs)))
 
     def forward(self, features: List[torch.Tensor]) -> torch.Tensor:
-        x = features[0]
+        x, levels = features[0], spatial.levels_of(features)
         skips = list(features[1:]) + [None]
         for block, skip in zip(self.blocks, skips):
-            x = block(x, skip)
+            x = block(x, skip, levels)
         return x

@@ -12,6 +12,12 @@ ensemble (B, C)), at least float32; per-patch logits come as (B, P, C)
 where the reference concatenates them patch-major as (P·B, C)
 (resnets_shift.py:217).
 
+Under spatial training each space rank holds P/M of every region's
+patches, whole (JAX shards the patch axis): the trunk, its GAP and
+``fc0`` run on them as they are, and ``fc_1`` takes the features of all
+P, gathered over the space group in patch order; ``per_patch`` then holds
+this rank's patches.
+
 :func:`compute_copy` gives the model for serving in a compute dtype,
 rounded where the flax model applied in ``cfg.compute_dtype`` rounds.
 """
@@ -29,6 +35,7 @@ from wsiseg_tpu_torch.models.heads import at_least_f32
 from wsiseg_tpu_torch.models.resnet import (ResNetEncoder,
                                             encoder_out_channels)
 from wsiseg_tpu_torch.models.ynet import FlaxBatchNorm, lecun_init
+from wsiseg_tpu_torch.parallel import comm, spatial
 
 #: patches a region: HR_NUM_CNT_SAMPLES + HR_NUM_PERIM_SAMPLES
 NUM_PATCHES = 16
@@ -60,17 +67,22 @@ class MultiPatchResNet(nn.Module):
         """xs: (B, P, H, W, 3) normalized patches → (per_patch (B, P, C),
         ensemble (B, C))."""
         b, p = xs.shape[:2]
-        if p != self.num_patches:
-            raise ValueError(f"expected {self.num_patches} patches, got {p}")
+        sp = comm.space()
+        if p * (1 if sp is None else sp.size) != self.num_patches:
+            raise ValueError(f"expected {self.num_patches} patches, got {p}"
+                             + ("" if sp is None else
+                                f" on each of {sp.size} space ranks"))
         x = xs.reshape(b * p, *xs.shape[2:]).permute(0, 3, 1, 2)
-        c5 = self.trunk(x)[0]
+        with spatial.whole():
+            c5 = self.trunk(x)[0]
         # GAP over the deepest stage in the dense layers' dtype, summed in
         # at least float32 (jnp.mean's accumulation) → (B·P, F)
         dt = self.fc0.weight.dtype
         acc = torch.promote_types(dt, torch.float32)
         f = c5.to(dt).mean(dim=(2, 3), dtype=acc).to(dt)
         per_patch = _dense(self.fc0, f).reshape(b, p, self.num_classes)
-        y = F.relu(_dense(self.fc_1, f.reshape(b, p * f.shape[-1])))
+        every = spatial.gather_patches(f.reshape(b, p, -1), sp)
+        y = F.relu(_dense(self.fc_1, every.reshape(b, -1)))
         return at_least_f32(per_patch), at_least_f32(_dense(self.fc_2, y))
 
 

@@ -4,13 +4,16 @@ GAP + Linear(n→n//4) + ReLU + Linear(n//4→out), and the gradient
 reversal function (reference models/models.py:5-17).
 
 The heads return at least float32: bf16 logits are widened, float64 ones
-(the CPU oracles) stay float64.
+(the CPU oracles) stay float64. On a stripe (spatial training) the global
+average pool is the space group's mean (``parallel.spatial.mean_hw``).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from wsiseg_tpu_torch.parallel.spatial import mean_hw
 
 
 class Classifier(nn.Module):
@@ -20,7 +23,7 @@ class Classifier(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, C, H, W) deepest encoder feature → (B, num_classes)."""
-        return at_least_f32(self.fc(x.mean(dim=(2, 3))))
+        return at_least_f32(self.fc(mean_hw(x)))
 
 
 class Regressor(nn.Module):
@@ -31,7 +34,7 @@ class Regressor(nn.Module):
                                 nn.Linear(in_features // 4, num_outputs))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return at_least_f32(self.fc(x.mean(dim=(2, 3))))
+        return at_least_f32(self.fc(mean_hw(x)))
 
 
 def at_least_f32(x: torch.Tensor) -> torch.Tensor:

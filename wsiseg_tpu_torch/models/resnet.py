@@ -11,6 +11,11 @@ directly and :mod:`.flax_import` maps the flax tree.
 Every BatchNorm of the port is :class:`BatchNorm2d`: torch's, with flax's
 train-mode update of the running variance, and global batch statistics
 under data-parallel training.
+
+Every conv is :class:`~wsiseg_tpu_torch.parallel.spatial.Conv2d`, an
+``nn.Conv2d`` that runs on row stripes under spatial training, and the
+encoder follows ``parallel.spatial``'s plan there: each stage's input is
+gathered over the space group where its level does not run on stripes.
 """
 
 from __future__ import annotations
@@ -18,10 +23,12 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from wsiseg_tpu_torch.parallel import comm
+from wsiseg_tpu_torch.parallel import comm, spatial
+from wsiseg_tpu_torch.parallel.spatial import Conv2d
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -58,28 +65,17 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def _global(self, x: torch.Tensor) -> torch.Tensor:
         """Train mode over the data group's ranks: the global batch's
-        moments (differentiable all-reduce), flax's running update. Every
+        moments (:class:`_GlobalBatchNorm`), flax's running update. Every
         rank holds a row, so the global count is at least 2."""
-        c = x.shape[1]
-        dt = torch.promote_types(x.dtype, torch.float32)
-        xf = x.to(dt)
-        dims = [d for d in range(x.ndim) if d != 1]
-        count = torch.full((1,), x.numel() // c, dtype=dt, device=x.device)
-        stats = comm.global_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims),
-                                           count]))
-        n = stats[-1]
-        mean = stats[:c] / n
-        var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)
+        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
+                                              self.eps, comm.data_group())
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(
-                m * mean.detach().to(self.running_mean.dtype))
+                m * mean.to(self.running_mean.dtype))
             self.running_var.mul_(1.0 - m).add_(
-                m * var.detach().to(self.running_var.dtype))
-        shape = (1, c) + (1,) * (x.ndim - 2)
-        y = (xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
-        return (y * self.weight.view(shape) + self.bias.view(shape)) \
-            .to(x.dtype)
+                m * var.to(self.running_var.dtype))
+        return y
 
     def _single(self, x: torch.Tensor) -> torch.Tensor:
         """One value per channel, where torch refuses to train: x equals
@@ -94,19 +90,70 @@ class BatchNorm2d(nn.BatchNorm2d):
                 + self.bias.view(1, -1, 1, 1)).to(x.dtype)
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Batch normalization with the moments of the global batch: mean and
+    variance from the all-reduced Σx, Σx² and count, as flax's
+    ``use_fast_variance`` computes them (E[x²] − E[x]², at least 0), in
+    at least float32. It keeps only x and the per-channel statistics for
+    the backward, which takes the global Σdy and Σdy·x̂ in one all-reduce
+    (the backward of the moments' all-reduce), as autograd through
+    ``comm.global_sum`` would; the affine gradients stay this rank's (the
+    step all-reduces every parameter's). Returns (y in x's dtype, mean,
+    variance), the last two without gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        c = x.shape[1]
+        dt = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(dt)
+        dims = [d for d in range(x.ndim) if d != 1]
+        count = torch.full((1,), x.numel() // c, dtype=dt, device=x.device)
+        stats = torch.cat([xf.sum(dims), (xf * xf).sum(dims), count])
+        dist.all_reduce(stats, group=group)
+        n = stats[-1]
+        mean = stats[:c] / n
+        var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        shape = (1, c) + (1,) * (x.ndim - 2)
+        y = (xf - mean.view(shape)) * invstd.view(shape)
+        y = (y * weight.view(shape) + bias.view(shape)).to(x.dtype)
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        c = x.shape[1]
+        dt = mean.dtype
+        shape = (1, c) + (1,) * (x.ndim - 2)
+        dims = [d for d in range(x.ndim) if d != 1]
+        xhat = (x.to(dt) - mean.view(shape)) * invstd.view(shape)
+        g = dy.to(dt)
+        local = torch.cat([g.sum(dims), (g * xhat).sum(dims)])
+        sums = local.clone()
+        dist.all_reduce(sums, group=ctx.group)
+        dx = (g - (sums[:c] / n).view(shape)
+              - xhat * (sums[c:] / n).view(shape)) \
+            * (invstd * weight.to(dt)).view(shape)
+        return (dx.to(x.dtype), local[c:].to(weight.dtype),
+                local[:c].to(weight.dtype), None, None)
+
+
 class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, cin: int, cout: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(cin, cout, 3, stride, 1, bias=False)
         self.bn1 = BatchNorm2d(cout)
-        self.conv2 = nn.Conv2d(cout, cout, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(cout, cout, 3, 1, 1, bias=False)
         self.bn2 = BatchNorm2d(cout)
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(
-                nn.Conv2d(cin, cout, 1, stride, bias=False),
+                Conv2d(cin, cout, 1, stride, bias=False),
                 BatchNorm2d(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -126,16 +173,16 @@ class Bottleneck(nn.Module):
     def __init__(self, cin: int, planes: int, stride: int = 1):
         super().__init__()
         cout = planes * self.expansion
-        self.conv1 = nn.Conv2d(cin, planes, 1, bias=False)
+        self.conv1 = Conv2d(cin, planes, 1, bias=False)
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, stride, 1, bias=False)
         self.bn2 = BatchNorm2d(planes)
-        self.conv3 = nn.Conv2d(planes, cout, 1, bias=False)
+        self.conv3 = Conv2d(planes, cout, 1, bias=False)
         self.bn3 = BatchNorm2d(cout)
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(
-                nn.Conv2d(cin, cout, 1, stride, bias=False),
+                Conv2d(cin, cout, 1, stride, bias=False),
                 BatchNorm2d(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -182,7 +229,7 @@ class ResNetEncoder(nn.Module):
         check_arch(arch)
         block_cls, stages = ENCODER_SPECS[arch]
         self.arch = arch
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm2d(64)
         cin = 64
         for i, (n_blocks, f) in enumerate(zip(stages, (64, 128, 256, 512))):
@@ -194,11 +241,23 @@ class ResNetEncoder(nn.Module):
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        c1 = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(c1, 3, 2, 1)
+        """On stripes (``parallel.spatial``) each stage runs as the plan
+        holds its level: its input gathered first where that level runs
+        on whole maps; the plan comes back with the features (a
+        ``spatial.Pyramid``)."""
+        stages = [lambda x: F.relu(self.bn1(self.conv1(x))),
+                  lambda x: self.layer1(spatial.max_pool2d(x, 3, 2, 1)),
+                  self.layer2, self.layer3, self.layer4]
         feats = []
-        for i in range(1, 5):
-            x = getattr(self, f"layer{i}")(x)
+        if comm.space() is None:
+            for stage in stages:
+                x = stage(x)
+                feats.append(x)
+            return feats[::-1]
+        levels = spatial.plan(x.shape[2])
+        for level, stage in enumerate(stages, 1):
+            x = spatial.settle(x, levels, level - 1, level)
+            with spatial.at(levels, level):
+                x = stage(x)
             feats.append(x)
-        c2, c3, c4, c5 = feats
-        return [c5, c4, c3, c2, c1]
+        return spatial.Pyramid(feats[::-1], levels)

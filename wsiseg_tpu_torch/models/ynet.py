@@ -29,11 +29,13 @@ from torch import nn
 
 from wsiseg_tpu_torch.config import Config
 from wsiseg_tpu_torch.models.decoders import (FPNDecoder, LinknetDecoder,
-                                              PSPDecoder, resize_linear)
+                                              PSPDecoder)
 from wsiseg_tpu_torch.models.heads import Classifier, Regressor, at_least_f32
 from wsiseg_tpu_torch.models.resnet import ResNetEncoder, \
     encoder_out_channels
 from wsiseg_tpu_torch.models.unet import UNetDecoder
+from wsiseg_tpu_torch.parallel import spatial
+from wsiseg_tpu_torch.parallel.spatial import Conv2d
 
 #: decoder family → (head input channels, head kernel size, bilinear
 #: upsample of the head's logits)
@@ -58,16 +60,26 @@ class YNet(nn.Module):
                             enc_ch)
         cin, k, self.head_upsample = HEADS[model_name]
         self.segmentation_head = nn.Sequential(
-            nn.Conv2d(cin, num_classes, k, 1, k // 2))
+            Conv2d(cin, num_classes, k, 1, k // 2))
         self.classifier = Classifier(enc_ch[0], num_classes)
         self.regressor = Regressor(enc_ch[0], num_reg_outputs)
 
     def _seg(self, feats) -> torch.Tensor:
-        y = self.segmentation_head(self.decoder(feats))
-        f = self.head_upsample
-        if f > 1:
-            y = resize_linear(y, f * y.shape[2], f * y.shape[3])
-        return at_least_f32(y)
+        """The seg logits; on stripes under spatial training (the head
+        and its upsample run where the decoder's output is held)."""
+        x = self.decoder(feats)
+        level, levels = self.decoder.out_level, spatial.levels_of(feats)
+        with spatial.at(levels, level):
+            y = self.segmentation_head(x)
+            if self.head_upsample > 1:
+                y = spatial.upsample_linear(y, self.head_upsample)
+        return at_least_f32(spatial.settle(y, levels, level, 0))
+
+    def _heads(self, feats, *names: str):
+        """The named heads on the pyramid's c5, held as its level is (a
+        stripe's GAP is the space group's mean)."""
+        with spatial.at(spatial.levels_of(feats), 5):
+            return [getattr(self, n)(feats[0]) for n in names]
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Full three-head forward. x: (B, 3, H, W) normalized float. In
@@ -76,8 +88,8 @@ class YNet(nn.Module):
         (:class:`~wsiseg_tpu_torch.models.resnet.BatchNorm2d`); every
         decoder family trains through this native forward."""
         feats = self.encoder(x)
-        return {"seg": self._seg(feats), "cls": self.classifier(feats[0]),
-                "reg": self.regressor(feats[0])}
+        cls, reg = self._heads(feats, "classifier", "regressor")
+        return {"seg": self._seg(feats), "cls": cls, "reg": reg}
 
     def encode(self, x: torch.Tensor) -> List[torch.Tensor]:
         """The encoder's pyramid [c5, c4, c3, c2, c1]."""
@@ -90,11 +102,11 @@ class YNet(nn.Module):
 
     def classify(self, x: torch.Tensor) -> torch.Tensor:
         """encoder → classifier: (B, num_classes) float32 logits."""
-        return self.classifier(self.encoder(x)[0])
+        return self._heads(self.encoder(x), "classifier")[0]
 
     def regress(self, x: torch.Tensor) -> torch.Tensor:
         """encoder → regressor: (B, num_reg_outputs) float32."""
-        return self.regressor(self.encoder(x)[0])
+        return self._heads(self.encoder(x), "regressor")[0]
 
 
 class FlaxBatchNorm(nn.Module):

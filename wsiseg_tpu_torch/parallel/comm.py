@@ -3,17 +3,27 @@ package (``jax.lax.psum``, the all-gather of a sharded output,
 ``jax.lax.ppermute``), as explicit calls every rank makes.
 
 The port is multi-controller: every rank runs the same Python on its own
-rows. :func:`data_parallel` names the group whose ranks share a batch;
-inside it :func:`global_sum` all-reduces a sum and carries its gradient
-back, so every reduction across samples (BatchNorm moments, a loss's
-numerator and denominator, OHEM's ranking) is the global one, as under
-JAX's mesh. Outside it (and with ``group=None`` in no such context) each
-function is the identity, so the single-device code paths are unchanged.
+rows. :func:`data_parallel` names the group whose ranks share a batch (on
+a (data, space) mesh: every rank of the mesh); inside it
+:func:`global_sum` all-reduces a sum and carries its gradient back, so
+every reduction across samples (BatchNorm moments, a loss's numerator and
+denominator, OHEM's ranking) is the global one, as under JAX's mesh.
+Outside it (and with ``group=None`` in no such context) each function is
+the identity, so the single-device code paths are unchanged.
+
+:func:`spatial` names the space axis of a (data, space) mesh: the ranks
+that hold the horizontal stripes of the same tiles
+(``parallel/spatial.py`` holds the ops that read it). Without a space
+axis it is the identity as well.
 
 Gradients: a SUM all-reduce hands each rank back the world size times its
 share (every rank holds the same global loss and seeds its backward with
 1), so :func:`all_reduce_grads` divides the all-reduced parameter
-gradients by the world size, which gives the exact global gradient.
+gradients by the world size, which gives the exact global gradient. This
+holds for any forward built from local ops and collectives whose backward
+all-reduces, replicated work included: a value every space rank computes
+alike enters a global ratio's numerator and denominator once per rank,
+and the factors cancel.
 
 :func:`gather_slots` and :func:`shift` are built from one ``all_reduce``
 of a zero-filled ``(world, …)`` slot buffer: that one code path runs on
@@ -33,10 +43,24 @@ import torch.distributed as dist
 
 _DATA_GROUP: contextvars.ContextVar = contextvars.ContextVar(
     "wsiseg_data_group", default=None)
+_SPACE: contextvars.ContextVar = contextvars.ContextVar(
+    "wsiseg_space", default=None)
+_STRIPED: contextvars.ContextVar = contextvars.ContextVar(
+    "wsiseg_striped", default=True)
 
 
 def as_group(mesh_or_group):
-    """The process group of a 1-D ``DeviceMesh`` (or a group as given)."""
+    """The process group of a ``DeviceMesh``: its one group when 1-D, the
+    group of all its ranks (``parallel.mesh.make_mesh`` makes it) when
+    it has more dims; a group as given."""
+    dims = getattr(mesh_or_group, "mesh_dim_names", None)
+    if dims is not None and len(dims) > 1:
+        flat = getattr(mesh_or_group, "flat_group", None)
+        if flat is None:
+            raise ValueError("a mesh of more than one dim needs the group "
+                             "of all its ranks: build it with "
+                             "parallel.mesh.make_mesh")
+        return flat
     get = getattr(mesh_or_group, "get_group", None)
     return get() if get is not None else mesh_or_group
 
@@ -53,10 +77,68 @@ def data_parallel(mesh_or_group):
         _DATA_GROUP.reset(token)
 
 
+class Space:
+    """The space axis of a (data, space) mesh as one rank sees it: the
+    ``group`` of the ranks that hold the ``size`` stripes of the same
+    tiles, and this rank's stripe index ``rank``."""
+
+    def __init__(self, group, rank: int, size: int):
+        self.group, self.rank, self.size = group, rank, size
+
+
+@contextlib.contextmanager
+def spatial(mesh_or_space):
+    """Run the enclosed forward on this rank's stripe of each tile: the
+    ``space`` dim of ``mesh_or_space`` (or a :class:`Space` as given).
+    Yields the Space; without such a dim (or with None) it yields None and
+    changes nothing."""
+    sp = mesh_or_space
+    if sp is not None and not isinstance(sp, Space):
+        names = tuple(sp.mesh_dim_names or ())
+        sp = (Space(sp.get_group("space"), sp.get_local_rank("space"),
+                    sp.size(names.index("space")))
+              if "space" in names else None)
+    token, flag = _SPACE.set(sp), _STRIPED.set(True)
+    try:
+        yield sp
+    finally:
+        _STRIPED.reset(flag)
+        _SPACE.reset(token)
+
+
+def space_root():
+    """The enclosing :func:`spatial`'s Space, whatever the enclosed ops
+    see now; None outside one."""
+    return _SPACE.get()
+
+
+def space():
+    """The enclosing :func:`spatial`'s Space while the ops see stripes;
+    None in a :func:`striped` (False) region and outside one."""
+    sp = _SPACE.get()
+    return sp if sp is not None and _STRIPED.get() else None
+
+
+@contextlib.contextmanager
+def striped(flag: bool):
+    """Inside :func:`spatial`: whether the enclosed ops see stripes
+    (True) or whole maps, which every space rank computes alike."""
+    token = _STRIPED.set(bool(flag))
+    try:
+        yield
+    finally:
+        _STRIPED.reset(token)
+
+
 def _resolve(group):
     """``group`` (a mesh or a group), or the enclosing
     :func:`data_parallel`'s; None without either."""
     return _DATA_GROUP.get() if group is None else as_group(group)
+
+
+def data_group():
+    """The enclosing :func:`data_parallel`'s group (None without one)."""
+    return _DATA_GROUP.get()
 
 
 def world(group=None) -> int:
@@ -96,9 +178,12 @@ def _slots(t: torch.Tensor, g) -> torch.Tensor:
     those bytes exactly, and every backend sums int32."""
     r, n = dist.get_rank(g), dist.get_world_size(g)
     if t.is_floating_point():
+        # 16-bit floats travel as float32 (exact: one value per slot), as
+        # not every backend sums them on every device
+        w = t.float() if t.element_size() < 4 else t
         return _AllReduceSum.apply(
-            torch.stack([t if i == r else torch.zeros_like(t)
-                         for i in range(n)]), g)
+            torch.stack([w if i == r else torch.zeros_like(w)
+                         for i in range(n)]), g).to(t.dtype)
     raw = t.contiguous().view(torch.uint8).reshape(-1)
     m = raw.numel()
     buf = torch.zeros((n, m + (-m) % 4), dtype=torch.uint8, device=t.device)

@@ -1,5 +1,5 @@
 """The multi-rank dryrun — counterpart of
-``__graft_entry__.dryrun_multichip`` (checks 1–4, at its sizes).
+``__graft_entry__.dryrun_multichip`` (checks 1–5, at its sizes).
 
 ``python -m wsiseg_tpu_torch.parallel.dryrun N [--device cuda|cpu]`` starts
 N ranks (one card a rank over NCCL by default, raising when fewer cards
@@ -15,15 +15,17 @@ over all of them:
 3. slide-parallel FCN serving of N slides (seeds 40 + k), one a rank:
    each equal to the single-device fused route;
 4. row-striped FCN against the chunked single-device oracle at
-   ``fcn_stripe_geometry`` (halo 16), for Unet and Linknet.
+   ``fcn_stripe_geometry`` (halo 16), for Unet and Linknet;
+5. for even N ≥ 4, the first hybrid step on an (N/2, 2) (data, space)
+   mesh from check 1's initial weights and batch: its loss equal to the
+   data-parallel step-0 loss within ``1e-3·max(1, loss)``, JAX's limit
+   (``__graft_entry__.py:127``). At 32² tiles over 2 space ranks level 5
+   is gathered (``parallel/spatial.py``).
 
 "Falling" is JAX's heuristic for three adam steps, not a property of the
 math: at 2 ranks (batch 4) the seed-0 Y-Net's third step raises the loss,
 as three single-device steps on the same batch do; run it at 4 ranks or
 more.
-
-Check 5 of the JAX dryrun (a data × spatial step equal to the DP step)
-waits for ROADMAP.md, queue 1, "Multi-GPU, spatial".
 """
 
 from __future__ import annotations
@@ -37,15 +39,17 @@ import numpy as np
 import torch
 
 from wsiseg_tpu_torch.parallel import comm
-from wsiseg_tpu_torch.parallel.checks import rank_mesh
+from wsiseg_tpu_torch.parallel.checks import rank_mesh, spatial_mesh
 from wsiseg_tpu_torch.parallel.launch import run_ranks
 from wsiseg_tpu_torch.parallel.mesh import (mesh_rank, mesh_size,
-                                            replicate_tree, shard_batch)
+                                            replicate_tree, shard_batch,
+                                            shard_batch_spatial)
 
 TILE = 32
 PER_RANK = 2
-#: step 1's DP metrics against the single-device step, × max(1, |ref|),
-#: f32 (the JAX dryrun's own limit for its spatial-vs-DP loss)
+#: step 1's DP metrics against the single-device step, and check 5's
+#: spatial step-0 loss against the DP one, × max(1, |ref|), f32 (the JAX
+#: dryrun's own limit for its spatial-vs-DP loss)
 STEP1_REL = 1e-3
 
 
@@ -91,6 +95,7 @@ def _rank(device) -> Dict[str, object]:
         model, build_optimizer(cfg, model.parameters())))
     ref = copy.deepcopy(model)
     ref_state = TrainState(ref, build_optimizer(cfg, ref.parameters()))
+    sp_model = copy.deepcopy(model)
     host = _batch(b)
     ref_m = make_hybrid_train_step(ref, cfg)(
         ref_state, {k: torch.from_numpy(v).to(dev) for k, v in host.items()})
@@ -104,6 +109,17 @@ def _rank(device) -> Dict[str, object]:
     step1 = max(abs(steps[0][k] - float(v)) / max(1.0, abs(float(v)))
                 for k, v in ref_m.items())
     losses = [m["loss"] for m in steps]
+
+    # 5. the spatial step 0 on an (n/2, 2) mesh against the DP step 0
+    spatial_loss = None
+    if n % 2 == 0 and n >= 4:
+        smesh = spatial_mesh(dev, n // 2, 2)
+        sstate = TrainState(sp_model, build_optimizer(
+            cfg, sp_model.parameters()))
+        with comm.data_parallel(smesh), comm.spatial(smesh):
+            spatial_loss = float(make_hybrid_train_step(sp_model, cfg)(
+                sstate, shard_batch_spatial(smesh, host))["loss"])
+    del sp_model
 
     # 2. psum == rows on the trained weights
     icfg = cfg.replace(tile_stride_w=TILE, tile_stride_h=TILE,
@@ -137,7 +153,8 @@ def _rank(device) -> Dict[str, object]:
         fcn_bad[fam] = not (got.labels == oracle.labels).all()
     return {
         "world": n, "losses": losses, "seg_loss": steps[-1]["loss_seg"],
-        "step1_rel": step1, "n_tiles": len(plan.grid),
+        "step1_rel": step1, "spatial_loss": spatial_loss,
+        "n_tiles": len(plan.grid),
         "psum_rows": psum_rows,
         "slides_equal": not comm.any_rank(slide_bad, dev, mesh),
         "fcn_rows_equal": {k: not comm.any_rank(v, dev, mesh)
@@ -148,13 +165,15 @@ def _rank(device) -> Dict[str, object]:
 
 def dryrun_multichip(n: int, device="cuda",
                      devices: Optional[Sequence] = None) -> Dict[str, object]:
-    """Checks 1–4 on ``n`` ranks (module docstring); raises
+    """Checks 1–5 on ``n`` ranks (module docstring; 5 for even n ≥ 4);
+    raises
     ``AssertionError`` naming the first that fails, prints one line, and
     returns rank 0's summary. ``devices`` places the ranks (two ranks on
     one card run over gloo)."""
     out = run_ranks(_rank, n, device, devices=devices,
                     threads=1 if torch.device(device).type == "cpu" else None)
     losses = out["losses"]
+    sl = out["spatial_loss"]
     failed = [msg for ok, msg in (
         (all(math.isfinite(x) for x in losses), f"non-finite {losses}"),
         (losses[-1] < losses[0], f"loss did not decrease: {losses}"),
@@ -163,6 +182,8 @@ def dryrun_multichip(n: int, device="cuda",
          f"DP step 1 != single-device step: rel {out['step1_rel']}"),
         (out["psum_rows"], "sharded psum/rows label mismatch"),
         (out["slides_equal"], "slide-parallel result != single-device"),
+        (sl is None or abs(sl - losses[0]) < STEP1_REL * max(1.0, losses[0]),
+         f"spatial step-0 loss {sl} != dp {losses[0]}"),
     ) + tuple((ok, f"{fam} row-striped FCN != chunked oracle")
               for fam, ok in out["fcn_rows_equal"].items()) if not ok]
     if failed:
@@ -172,15 +193,18 @@ def dryrun_multichip(n: int, device="cuda",
           f"step 1 == single device within {out['step1_rel']:.3g}), "
           f"sharded inference psum==rows over {out['n_tiles']} tiles, "
           f"slide-parallel fcn serving x{n} == single, row-striped FCN == "
-          f"chunked oracle (Unet + Linknet); check 5 (spatial step == DP) "
-          f"waits for ROADMAP.md, queue 1, 'Multi-GPU, spatial'")
+          f"chunked oracle (Unet + Linknet), " + (
+              f"check 5 OK: spatial ({n // 2}x2) step-0 loss {sl:.6f} == "
+              f"DP {losses[0]:.6f}" if sl is not None else
+              "check 5 (spatial) skipped: it needs an even world of 4 or "
+              "more"))
     return out
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     p = argparse.ArgumentParser(
         prog="python -m wsiseg_tpu_torch.parallel.dryrun",
-        description="the multi-rank dryrun (checks 1-4 of "
+        description="the multi-rank dryrun (checks 1-5 of "
                     "__graft_entry__.dryrun_multichip)")
     p.add_argument("n", type=int, help="ranks")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",

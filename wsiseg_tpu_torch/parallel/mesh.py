@@ -10,13 +10,15 @@ initialized process group (:mod:`.launch` starts one); a route's layout
 (batch rows, canvas stripes) is in its own code, not in DTensor
 placements.
 
-Spatial training (``shard_batch_spatial``, ``--mesh NxM``) is not ported
-(ROADMAP.md, queue 1, "Multi-GPU, spatial").
+On a 2-D ``("data", "space")`` mesh (``--mesh NxM``) rank (d, s) holds
+the d-th 1/N of each batch's rows and the s-th horizontal stripe of each
+of those tiles (:func:`shard_batch_spatial`; ``parallel/spatial.py``
+holds the ops that run on stripes).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -53,8 +55,13 @@ def make_mesh(cfg: Optional[Config] = None,
         dtype = torch.device(devices[dist.get_rank()]).type
     else:
         dtype = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return DeviceMesh(dtype, torch.arange(total).reshape(shape),
+    mesh = DeviceMesh(dtype, torch.arange(total).reshape(shape),
                       mesh_dim_names=axes)
+    if len(shape) > 1:
+        # every rank of the world takes part in making a group, so the
+        # group of all the mesh's ranks (comm.as_group) is made here
+        mesh.flat_group = dist.new_group(ranks=list(range(total)))
+    return mesh
 
 
 def mesh_size(mesh, axis: Optional[str] = None) -> int:
@@ -75,6 +82,39 @@ def mesh_group(mesh, axis: Optional[str] = None):
 def _dim(mesh, axis: Optional[str]) -> int:
     names = mesh.mesh_dim_names or ()
     return names.index(axis) if axis is not None else 0
+
+
+def mesh_index(mesh) -> int:
+    """This rank's index among all the mesh's ranks (row-major)."""
+    return dist.get_rank(comm.as_group(mesh))
+
+
+def is_lead(mesh) -> bool:
+    """True on the mesh's first rank (every coordinate 0): the one that
+    logs, validates and saves."""
+    return all(c == 0 for c in mesh.get_coordinate())
+
+
+def space_size(mesh, axis: str = "space") -> int:
+    """Ranks along the mesh's space axis; 1 without one."""
+    return mesh_size(mesh, axis) if axis in (mesh.mesh_dim_names or ()) \
+        else 1
+
+
+def stripe_bounds(mesh, n: int, axis: str = "space") -> Tuple[int, int]:
+    """This rank's [lo, hi) of ``n`` rows (or patches) split over the
+    space axis, as JAX shards a dim over a mesh axis: evenly, in order;
+    ``ValueError`` when they do not divide."""
+    m = space_size(mesh, axis)
+    if n % m:
+        raise ValueError(f"height {n} not divisible by the space axis "
+                         f"({m})")
+    s = mesh_rank(mesh, axis) if m > 1 else 0
+    return s * n // m, (s + 1) * n // m
+
+
+def _spatial_key(k: str, v) -> bool:
+    return k in SPATIAL_KEYS and getattr(v, "ndim", 0) >= 3
 
 
 def mesh_device(mesh) -> torch.device:
@@ -112,13 +152,59 @@ def shard_batch(mesh, batch: Dict, axis: str = "data",
             for k, v in batch.items()}
 
 
+#: the batch keys sharded on (batch, height) on a (data, space) mesh, as
+#: JAX's (its s2d label view included); others shard on batch only
+SPATIAL_KEYS = ("image", "seg_label", "seg_label_s2d")
+
+
+def take_stripe(mesh, batch: Dict, axis: str = "space") -> Dict:
+    """This rank's stripe of a batch of its rows (tensors or arrays): dim
+    1 of each :data:`SPATIAL_KEYS` entry of 3 dims or more (an image's or
+    label map's height; the HR ensemble's patches), split over ``axis``
+    by :func:`stripe_bounds`; other keys as they are."""
+    out = {}
+    for k, v in batch.items():
+        if _spatial_key(k, v):
+            lo, hi = stripe_bounds(mesh, v.shape[1], axis)
+            v = v[:, lo:hi]
+        out[k] = v
+    return out
+
+
+def shard_batch_spatial(mesh, batch: Dict, data_axis: str = "data",
+                        space_axis: str = "space",
+                        microbatches: int = 1) -> Dict[str, torch.Tensor]:
+    """JAX's ``shard_batch_spatial`` (``mesh.py:70``) for one rank: the
+    images and dense label maps of a host batch sharded on (batch,
+    height), per-row values on batch only, ``rng*`` keys replicated; this
+    rank's shard, on its device. Rows by :func:`batch_rows` (microbatch
+    order under ``microbatches``), the stripe by :func:`take_stripe`.
+    Raises ``ValueError`` when a height does not divide over the space
+    axis."""
+    m = space_size(mesh, space_axis)
+    for k, v in batch.items():
+        if _spatial_key(k, v) and v.shape[1] % m:
+            raise ValueError(f"{k} height {v.shape[1]} not divisible by "
+                             f"the space axis ({m})")
+    dev = mesh_device(mesh)
+    b = next(len(v) for k, v in batch.items() if not k.startswith("rng"))
+    rows = batch_rows(mesh, b, data_axis, microbatches)
+    local = take_stripe(mesh, {
+        k: np.asarray(v) if k.startswith("rng") else np.asarray(v)[rows]
+        for k, v in batch.items()}, space_axis)
+    return {k: torch.as_tensor(np.ascontiguousarray(v)).to(dev)
+            for k, v in local.items()}
+
+
 def replicate_tree(mesh, module_or_state, axis: str = "data"):
     """Rank 0's parameters, buffers and optimizer state (and a
-    ``TrainState``'s step) broadcast to every rank, in place; returns the
-    argument. Optimizer scalars kept off the mesh's device (torch's step
-    counts on the CPU) are left as each rank has them: every rank counts
-    the same steps."""
-    g = mesh_group(mesh, axis)
+    ``TrainState``'s step) broadcast to every rank (every rank of the mesh
+    when it has more than one dim), in place; returns the argument.
+    Optimizer scalars kept off the mesh's device (torch's step counts on
+    the CPU) are left as each rank has them: every rank counts the same
+    steps."""
+    g = comm.as_group(mesh) if len(mesh.mesh_dim_names or ()) > 1 \
+        else mesh_group(mesh, axis)
     dev = mesh_device(mesh)
     model = getattr(module_or_state, "model", module_or_state)
     tensors = [t.data for t in model.parameters()] + \

@@ -21,6 +21,15 @@ each rank draws the global batch's jitter to take its rows' factors, and
 every step runs inside ``comm.data_parallel`` (global BatchNorm
 statistics and losses, all-reduced gradients). Rank 0 logs, validates
 and saves the checkpoints.
+
+On a (data, space) mesh (JAX's ``space`` branch, ``loop.py:108-121``) the
+rows come by data coordinate and the ranks of one data row decode and
+jitter the same whole tiles; each then keeps its stripe
+(``parallel.mesh.take_stripe``: the jitter's contrast step takes each
+whole image's mean, so it runs before the split), and the step runs
+inside ``comm.spatial`` as well. BatchNorm, the losses, the metrics and
+the gradients reduce over all the mesh's ranks; the batch size divides
+over the data axis only.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import torch
 from wsiseg_tpu_torch.config import Config
 from wsiseg_tpu_torch.data.pipeline import prefetch_to_device
 from wsiseg_tpu_torch.parallel import comm
+from wsiseg_tpu_torch.parallel.mesh import take_stripe
 from wsiseg_tpu_torch.train.state import TrainState, save_train_state
 
 
@@ -90,14 +100,18 @@ class Trainer:
         row, None, True)."""
         if self.mesh is None:
             return self.make_batches, (lambda n_local: None), True
-        from wsiseg_tpu_torch.parallel.mesh import (batch_rows, mesh_rank,
+        from wsiseg_tpu_torch.parallel.mesh import (batch_rows, is_lead,
                                                     mesh_size,
-                                                    replicate_tree)
+                                                    replicate_tree,
+                                                    space_size)
         cfg, mesh = self.cfg, self.mesh
         n = mesh_size(mesh)
+        m = space_size(mesh)
         if cfg.batch_size % n:
-            raise ValueError(f"global batch_size {cfg.batch_size} must "
-                             f"divide evenly over {n} mesh devices")
+            raise ValueError(
+                f"global batch_size {cfg.batch_size} must divide evenly "
+                + (f"over {n} mesh devices" if m == 1 else
+                   f"over the {n}-way data axis"))
         replicate_tree(mesh, self.state)
         ga = cfg.grad_accum
 
@@ -114,8 +128,12 @@ class Trainer:
                     device=self.device))
             return cache[n_local]
 
-        lead = mesh_rank(mesh) == 0
-        if lead:
+        lead = is_lead(mesh)
+        if lead and m > 1:
+            shape = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+            self.log(f"data×spatial training over {shape} "
+                     f"({cfg.batch_size // n} per data shard)")
+        elif lead:
             self.log(f"data-parallel training over {n} ranks "
                      f"({cfg.batch_size // n} per rank)")
         return batches, rows_of, lead
@@ -140,8 +158,10 @@ class Trainer:
                 if self.preprocess_batch is not None:
                     batch = self.preprocess_batch(batch, gen,
                                                   rows=rows_of(n_local))
+                if self.mesh is not None:
+                    batch = take_stripe(self.mesh, batch)
                 n_samples += n_local * n_rank
-                with comm.data_parallel(self.mesh):
+                with comm.data_parallel(self.mesh), comm.spatial(self.mesh):
                     metrics = self.step_fn(self.state, batch, gen)
                 count += 1
                 for k, v in metrics.items():

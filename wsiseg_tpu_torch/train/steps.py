@@ -30,7 +30,12 @@ takes this rank's rows of the global batch (``parallel.mesh.shard_batch``);
 the BatchNorm moments, the losses and the metrics are global, and the
 parameter gradients are all-reduced and divided by the world size
 (``parallel/comm.py``): the single-device step's math, as under JAX's
-mesh.
+mesh. Inside ``comm.spatial`` as well (a (data, space) mesh, JAX's
+``shard_batch_spatial``) the batch holds this rank's stripe of each tile
+(``parallel.mesh.take_stripe``), the models run on stripes
+(``parallel/spatial.py``), the reductions and the gradient all-reduce
+span all the mesh's ranks, and ``grad_accum`` splits the rows, the data
+axis, only.
 
 The model trains through its native decoder for every family: the JAX
 package's train s2d tails (``unet._S2dTailBlock``,
