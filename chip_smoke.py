@@ -27,6 +27,12 @@ just before and read just after:
 - ``predict_tumorbed`` on three bench-geometry slides (4096×3072 at level
   2, resnet18 Unet, 4 classes, bf16) on the default route, and on two with
   ``engine.fcn_fold = True``, each with ``device_throughput``;
+- the profiling helpers (phase ``[6l]``, ``wsiseg_tpu_torch.utils.
+  profiling``) on the default route's engine: ``device_throughput``
+  inside ``trace`` (the trace holds K1's ``stem_sm90`` symbol) and
+  ``timed``, the allocator's peak within the card, the card's bf16 peak
+  from the table, and the analytic FLOPs a slide with the achieved
+  TFLOP/s;
 - each decoder family (Unet, Linknet, FPN, PSPNet) on the resnet50
   encoder, full width and depth: ``predict_tumorbed`` on two
   bench-geometry slides as one group (one K1 launch), ``device_throughput``
@@ -614,10 +620,11 @@ def phase_eval_cli(dev, tmp: str) -> int:
     return launches
 
 
-def phase_serve(dev, tmp: str, fold: bool, n_slides: int) -> dict:
+def phase_serve(dev, tmp: str, fold: bool, n_slides: int):
     """predict_tumorbed on bench-geometry slides, two in flight, on the
     default or the fold route; then device_throughput with 1 and 2 slides
-    in flight."""
+    in flight. Returns the launch counts, the engine and the first slide's
+    plan."""
     from wsiseg_tpu_torch.config import default_config
     from wsiseg_tpu_torch.data.wsi_tiles import SlideCollection
     from wsiseg_tpu_torch.infer import writers
@@ -686,7 +693,54 @@ def phase_serve(dev, tmp: str, fold: bool, n_slides: int) -> dict:
           f"({two['patches_per_sec']:.1f} p/s); peak at 1 slide "
           f"{peak / 1e9:.4f} GB = {peak / (h * w):.1f} B per padded px",
           flush=True)
-    return counts
+    return counts, engine, plan
+
+
+def phase_profiling(engine, plan, tmp: str, smi: str) -> int:
+    """``wsiseg_tpu_torch.utils.profiling`` on the default route's engine
+    and bench-geometry plan (``[6l]``; resnet18 Unet, a 4096×3072 level
+    2, bf16): ``device_throughput`` inside ``profiling.trace`` (the
+    written trace must hold K1's symbol, and K1 must have launched) and
+    inside ``profiling.timed``; the allocator's peak within the card's
+    memory; the card found in ``PEAK_TFLOPS``; and the analytic FLOPs of
+    one slide over its device seconds, with their share of the table's
+    peak (no limit on it). Returns the phase's K1 launches."""
+    from wsiseg_tpu_torch.utils import profiling
+
+    t0 = time.time()
+    h, w = BENCH_HW
+    log_dir = os.path.join(tmp, "trace")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with profiling.trace(log_dir):
+        engine.device_throughput(plan, mode="fcn", iters=1)
+    in_trace = read_counts()["stem_pool_conv"]
+    assert in_trace >= 1, "[6l] K1 never launched inside the trace"
+    (path,) = [os.path.join(log_dir, f) for f in os.listdir(log_dir)
+               if f.endswith(".pt.trace.json")]
+    with open(path) as f:
+        trace_text = f.read()
+    assert "stem_sm90" in trace_text, "[6l] the trace lacks K1's symbol"
+    timed = []
+    with profiling.timed("device_throughput", log=timed.append):
+        thr = engine.device_throughput(plan, mode="fcn", iters=3)
+    launches = read_counts()["stem_pool_conv"]
+    mem = profiling.device_memory_stats()
+    assert 0 < mem["peak_bytes_in_use"] <= mem["bytes_limit"], mem
+    peak = profiling.detect_peak_tflops()
+    flops = profiling.dense_forward_flops("resnet18", h, w)
+    tflops = flops / thr["sec_per_slide"] / 1e12
+    print(f"[6l] profiling: trace {len(trace_text) / 1e6:.2f} MB holds "
+          f"stem_sm90 ({in_trace} K1 launches inside); timed "
+          f"{timed[0]}; peak {mem['peak_bytes_in_use'] / 1e9:.4f} GB of "
+          f"{mem['bytes_limit'] / 1e9:.4f} GB; dense_forward_flops"
+          f"('resnet18', {h}, {w}) = {flops:.0f} FLOPs at "
+          f"{thr['sec_per_slide']:.5f} device s/slide = {tflops:.4f} "
+          f"TFLOP/s, {100 * tflops / peak:.2f} % of the table's "
+          f"{peak:.0f} TFLOP/s; [6l] {time.time() - t0:.1f} s | {smi}",
+          flush=True)
+    return launches
 
 
 def phase_families(dev, tmp: str) -> int:
@@ -2287,8 +2341,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli(dev, tmp)
         eval_cli = phase_eval_cli(dev, tmp)
-        default = phase_serve(dev, tmp, fold=False, n_slides=3)
-        fold = phase_serve(dev, tmp, fold=True, n_slides=2)
+        default, engine, plan = phase_serve(dev, tmp, fold=False,
+                                            n_slides=3)
+        profiled = phase_profiling(engine, plan, tmp, smi)
+        del engine, plan
+        fold, _, _ = phase_serve(dev, tmp, fold=True, n_slides=2)
         families = phase_families(dev, tmp)
         phase_grid(dev, tmp, smi)
         eval_full = phase_eval_full(dev, tmp, smi)
@@ -2301,8 +2358,9 @@ def main() -> None:
     routes = phase_routes(dev)
     chain = phase_fold_chain(dev)
     head = phase_head(dev)
-    launches = {"stem_pool_conv": default["stem_pool_conv"] + families
-                + routes["stem_pool_conv"] + eval_cli + eval_full + multi,
+    launches = {"stem_pool_conv": default["stem_pool_conv"] + profiled
+                + families + routes["stem_pool_conv"] + eval_cli
+                + eval_full + multi,
                 "stem_conv": fold["stem_conv"] + routes["stem_conv"],
                 "conv9": fold["conv9"] + routes["conv9"],
                 "conv_chain": chain["conv_chain"],

@@ -12,7 +12,8 @@ exactly equal to the CPU; a float64 training step on the card against
 the CPU (no kernel of the port launched) and the ``train`` CLI on the
 card; the proposal/HR ops on the card against the CPU: k-means seeds
 equal, Lloyd, SLIC, label propagation (exact), the HR ensemble in bf16
-and a float64 HR step.
+and a float64 HR step; ``utils.profiling``'s CUDA forms (trace, allocator
+stats, ``timed``).
 They skip where ``torch.cuda.is_available()`` is False. This file imports
 no JAX, so it also runs on a machine without it:
 
@@ -571,3 +572,38 @@ def test_hr_step_gpu_matches_cpu_f64(cuda_device):
         if ref.is_floating_point():
             d = ((sg[k] - ref).abs() / ref.abs().clamp(min=1.0)).max()
             assert d.item() <= 1e-9, (k, d.item())
+
+
+def test_profiling_on_the_card(cuda_device, tmp_path):
+    """utils.profiling's CUDA forms: the trace holds the block's kernel,
+    the allocator's peak covers the block's tensors and stays within the
+    card, ``timed`` syncs and logs, and the card is in the peak table."""
+    import glob
+    import json
+    import os
+    from wsiseg_tpu_torch.utils import profiling
+    x = torch.from_numpy(np.random.RandomState(0).rand(1024, 1024).astype(
+        np.float32)).to(cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profiling.trace(str(tmp_path)) as prof:
+        y = x @ x
+        torch.cuda.synchronize()
+    (path,) = glob.glob(os.path.join(str(tmp_path), "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)
+    assert any(ev.device_type == torch.autograd.DeviceType.CUDA
+               for ev in prof.key_averages())
+    mem = profiling.device_memory_stats()
+    assert mem["peak_bytes_in_use"] >= 2 * x.numel() * 4
+    assert mem["bytes_in_use"] <= mem["peak_bytes_in_use"] \
+        <= mem["bytes_limit"]
+    assert profiling.device_memory_stats(cuda_device)["bytes_limit"] == \
+        mem["bytes_limit"]
+    lines = []
+    with profiling.timed("matmul", log=lines.append):
+        y = y @ x
+    assert len(lines) == 1 and lines[0].startswith("matmul: ")
+    assert torch.isfinite(y).all()
+    assert profiling.detect_peak_tflops() in profiling.PEAK_TFLOPS.values()

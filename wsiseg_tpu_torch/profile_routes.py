@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from wsiseg_tpu_torch.config import KNOWN_ENCODERS, KNOWN_MODELS
+from wsiseg_tpu_torch.utils import profiling
 
 BENCH_HW = (3072, 4096)
 OWN = ("stem_sm90_kernel", "conv9_sm90_kernel", "conv_chain_sm90_kernel")
@@ -135,11 +136,9 @@ def profile_route(fold: bool, n_slides: int, iters: int,
     torch.cuda.reset_peak_memory_stats()
     engine._run_fused(imgs, masks)
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
+    peak = profiling.device_memory_stats()["peak_bytes_in_use"]
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with profiling.trace(None) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             engine._run_fused(imgs, masks)

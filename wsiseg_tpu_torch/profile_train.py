@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from wsiseg_tpu_torch.config import KNOWN_ENCODERS, KNOWN_MODELS
+from wsiseg_tpu_torch.utils import profiling
 
 CLASSES = (("library_conv", ("conv", "cudnn", "xmma", "gemm", "cutlass",
                              "implicit", "sm90_")),
@@ -96,11 +97,9 @@ def profile_step(batch: int, tile: int, iters: int, model_name: str,
     torch.cuda.reset_peak_memory_stats()
     step(state, b)
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
+    peak = profiling.device_memory_stats()["peak_bytes_in_use"]
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with profiling.trace(None) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             step(state, b)
