@@ -7,6 +7,12 @@ A worker thread pulls host batches, copies their numpy arrays into pinned
 buffers and from there to the device on a side CUDA stream, and records
 one event per batch; the consumer's stream waits on that event before it
 reads the batch. At most ``depth`` batches wait in the queue.
+
+Ranges (``torch.profiler.record_function``): on the consumer,
+``loader.wait`` (each wait for the next batch: the first one starts the
+worker, the last one ends the iterator) and ``loader.close`` (the worker stopped and joined); on the
+worker, ``loader.next`` (the host iterator's next batch) and
+``loader.copy`` (a batch staged to the device).
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 
 class _Done:
@@ -80,8 +87,6 @@ def prefetch_to_device(batch_iter: Iterator[dict], depth: int = 2,
     cuda = device.type == "cuda"
     if cuda and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    stream = torch.cuda.Stream(device) if cuda else None
-    ring = _PinnedRing(max(1, depth) + 2) if cuda else None
 
     def put(item) -> bool:
         while not stop.is_set():
@@ -96,13 +101,21 @@ def prefetch_to_device(batch_iter: Iterator[dict], depth: int = 2,
         try:
             if cuda:
                 torch.cuda.set_device(device)
-            for b in batch_iter:
-                if cuda:
-                    item = ring.stage(b, device, stream)
-                else:
-                    item = ({k: torch.from_numpy(np.ascontiguousarray(v))
-                             .to(device) if isinstance(v, np.ndarray) else v
-                             for k, v in b.items()}, None)
+                stream = torch.cuda.Stream(device)
+                ring = _PinnedRing(max(1, depth) + 2)
+            it = iter(batch_iter)
+            while True:
+                with record_function("loader.next"):
+                    b = next(it, _DONE)
+                if b is _DONE:
+                    break
+                with record_function("loader.copy"):
+                    if cuda:
+                        item = ring.stage(b, device, stream)
+                    else:
+                        item = ({k: torch.from_numpy(np.ascontiguousarray(v))
+                                 .to(device) if isinstance(v, np.ndarray)
+                                 else v for k, v in b.items()}, None)
                 if not put(item):
                     return
         except BaseException as e:   # handed to the consumer, raised there
@@ -111,22 +124,25 @@ def prefetch_to_device(batch_iter: Iterator[dict], depth: int = 2,
             put(_DONE)
 
     t = threading.Thread(target=worker, daemon=True)
-    t.start()
     try:
         while True:
-            item = q.get()
-            if isinstance(item, _Done):
-                if err:
-                    raise err[0]
-                return
-            out, ready = item
-            if ready is not None:
-                cur = torch.cuda.current_stream(device)
-                cur.wait_event(ready)
-                for v in out.values():
-                    if isinstance(v, torch.Tensor):
-                        v.record_stream(cur)
+            with record_function("loader.wait"):
+                if t.ident is None:   # the first wait covers its start
+                    t.start()
+                item = q.get()
+                if isinstance(item, _Done):
+                    if err:
+                        raise err[0]
+                    return
+                out, ready = item
+                if ready is not None:
+                    cur = torch.cuda.current_stream(device)
+                    cur.wait_event(ready)
+                    for v in out.values():
+                        if isinstance(v, torch.Tensor):
+                            v.record_stream(cur)
             yield out
     finally:
-        stop.set()
-        t.join(timeout=10)
+        with record_function("loader.close"):
+            stop.set()
+            t.join(timeout=10)

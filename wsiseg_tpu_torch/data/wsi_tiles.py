@@ -13,6 +13,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+from torch.profiler import record_function
 
 from wsiseg_tpu_torch.config import Config
 from wsiseg_tpu_torch.ops.geometry import (TileGrid, filter_grid_by_mask,
@@ -50,35 +51,42 @@ def plan_slide(name: str, slide: SlideReader, cfg: Config,
                path: Optional[str] = None,
                mask_cache_dir: Optional[str] = None) -> Optional[SlidePlan]:
     """Returns None when the slide lacks the requested pyramid level or
-    has no foreground tile (the reference skips such slides)."""
-    if slide.level_count - 1 < cfg.scan_level or slide.level_count < 3:
-        return None
-    iw, ih = slide.level_dimensions[cfg.scan_level]
+    has no foreground tile (the reference skips such slides). Ranges:
+    ``plan.slide`` (the call), ``plan.mask`` (the cached mask's decode, or
+    ``find_nuclei`` and its save) and ``plan.filter`` (the foreground
+    gate)."""
+    with record_function("plan.slide"):
+        if slide.level_count - 1 < cfg.scan_level or slide.level_count < 3:
+            return None
+        iw, ih = slide.level_dimensions[cfg.scan_level]
 
-    mask = None
-    mask_path = None
-    if mask_cache_dir:
-        from PIL import Image
-        make_folder(mask_cache_dir)
-        mask_path = os.path.join(mask_cache_dir, f"{name}.png")
-        if os.path.exists(mask_path):
-            mask = np.asarray(Image.open(mask_path).convert("L"))
-    if mask is None:
-        mask = find_nuclei(slide.read_level(2)).numpy()
-        if mask_path:
-            Image.fromarray(mask.astype(np.uint8)).save(mask_path)
+        with record_function("plan.mask"):
+            mask = None
+            mask_path = None
+            if mask_cache_dir:
+                from PIL import Image
+                make_folder(mask_cache_dir)
+                mask_path = os.path.join(mask_cache_dir, f"{name}.png")
+                if os.path.exists(mask_path):
+                    mask = np.asarray(Image.open(mask_path).convert("L"))
+            if mask is None:
+                mask = find_nuclei(slide.read_level(2)).numpy()
+                if mask_path:
+                    Image.fromarray(mask.astype(np.uint8)).save(mask_path)
 
-    # scan-level → level-2 multiplier
-    m = slide.level_downsamples[cfg.scan_level] / slide.level_downsamples[2]
-    grid = wsi_tile_grid(iw, ih, cfg.tile_w, cfg.tile_h,
-                         cfg.tile_stride_w, cfg.tile_stride_h)
-    full_len = len(grid)
-    grid = filter_grid_by_mask(grid, mask, m)
-    if len(grid) == 0:
-        return None
-    return SlidePlan(name=name, slide=slide, path=path, grid=grid,
-                     full_grid_len=full_len, mask=mask, mask_path=mask_path,
-                     scan_level=cfg.scan_level)
+        # scan-level → level-2 multiplier
+        m = (slide.level_downsamples[cfg.scan_level]
+             / slide.level_downsamples[2])
+        grid = wsi_tile_grid(iw, ih, cfg.tile_w, cfg.tile_h,
+                             cfg.tile_stride_w, cfg.tile_stride_h)
+        full_len = len(grid)
+        with record_function("plan.filter"):
+            grid = filter_grid_by_mask(grid, mask, m)
+        if len(grid) == 0:
+            return None
+        return SlidePlan(name=name, slide=slide, path=path, grid=grid,
+                         full_grid_len=full_len, mask=mask,
+                         mask_path=mask_path, scan_level=cfg.scan_level)
 
 
 class SlideCollection:

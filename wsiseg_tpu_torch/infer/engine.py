@@ -68,6 +68,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from wsiseg_tpu_torch.config import Config
 from wsiseg_tpu_torch.data.pipeline import prefetch_to_device
@@ -313,8 +314,9 @@ class DenseInferenceEngine:
 
     def stage_slide_fcn(self, plan: SlidePlan) -> StagedImage:
         """Read + pad + upload a slide's level image for the fused FCN
-        route."""
-        return self._stage(self._read_padded_level(plan))
+        route (range ``engine.stage``)."""
+        with record_function("engine.stage"):
+            return self._stage(self._read_padded_level(plan))
 
     def _take(self, staged) -> torch.Tensor:
         """A staged image's tensor, the compute stream made to wait for
@@ -549,10 +551,14 @@ class DenseInferenceEngine:
 
     def _run_fused(self, imgs: torch.Tensor, masks: torch.Tensor):
         """(N, Hp, Wp, 3) u8 + (N, Hp/f, Wp/f) u8 masks on the device →
-        (packed labels, heat planes) on the device."""
-        labels_p, heat_p = self._postprocess_planes(self._forward(imgs),
-                                                    masks)
-        return self._pack_labels(labels_p), heat_p
+        (packed labels, heat planes) on the device, in ranges
+        ``engine.forward`` and ``engine.postprocess`` (postprocess and
+        pack)."""
+        with record_function("engine.forward"):
+            y = self._forward(imgs)
+        with record_function("engine.postprocess"):
+            labels_p, heat_p = self._postprocess_planes(y, masks)
+            return self._pack_labels(labels_p), heat_p
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -576,11 +582,25 @@ class DenseInferenceEngine:
         return batch, masks.to(self.device)
 
     def _serve(self, plans: List[SlidePlan], imgs=None) -> List[SlideResult]:
-        t0 = time.time()
-        labels, heat = self._run_fused(*self._inputs(plans, imgs))
-        labels, heat = labels.cpu().numpy(), heat.cpu().numpy()
-        return self._results(plans, labels, heat,
-                             (time.time() - t0) / len(plans))
+        """A group through the fused route, in ranges under
+        ``engine.serve``: ``engine.inputs`` (masks, staged images),
+        ``engine.launch`` (forward, postprocess, pack), ``engine.sync``
+        (the wait for what the device still runs), ``engine.d2h`` (the
+        copies) and ``engine.tail`` (unpack, interleave, heat to f32)."""
+        with record_function("engine.serve"):
+            t0 = time.perf_counter()
+            with record_function("engine.inputs"):
+                batch, masks = self._inputs(plans, imgs)
+            with record_function("engine.launch"):
+                labels, heat = self._run_fused(batch, masks)
+            with record_function("engine.sync"):
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+            with record_function("engine.d2h"):
+                labels, heat = labels.cpu().numpy(), heat.cpu().numpy()
+            per = (time.perf_counter() - t0) / len(plans)
+            with record_function("engine.tail"):
+                return self._results(plans, labels, heat, per)
 
     def _results(self, plans: Sequence[SlidePlan], labels: np.ndarray,
                  heat: np.ndarray, per: float) -> List[SlideResult]:

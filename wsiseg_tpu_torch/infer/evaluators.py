@@ -28,6 +28,7 @@ from typing import Callable, Dict, Iterable, List
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from wsiseg_tpu_torch.config import Config
 from wsiseg_tpu_torch.data.patches import normalize_batch_images
@@ -75,7 +76,8 @@ def _pipelined_results(engine: DenseInferenceEngine,
       overlaps the next group's host read and upload with this group's
       compute; slides over ``fcn_fast_max_px`` are not staged (they take
       the banded route, one band at a time). Off the fused route (cls
-      mode, ``scan_resize`` ≠ 1) nothing is staged.
+      mode, ``scan_resize`` ≠ 1) nothing is staged. The wait on a
+      group's staging is range ``pipeline.stage_wait``.
     - otherwise the grid: slide k+1's level image is staged
       (``stage_slide``) while slide k computes.
 
@@ -141,7 +143,8 @@ def _pipelined_results(engine: DenseInferenceEngine,
             for gi, g in enumerate(groups):
                 nxt = (pool.submit(stage_group, groups[gi + 1])
                        if gi + 1 < len(groups) else None)
-                imgs = staged.result()
+                with record_function("pipeline.stage_wait"):
+                    imgs = staged.result()
                 if len(g) == 1:
                     res_list = [engine.predict_slide_fcn(g[0][1],
                                                          img=imgs[0])]

@@ -10,7 +10,10 @@ at its end, so no step waits for the device (``loop.py:146-171``). Each
 step gets its own ``torch.Generator`` on the device, seeded from (seed,
 epoch, step), for the jitter of its batch: deterministic per step,
 independent of the global RNG. (The JAX package's ``host_step_keys``
-derives threefry keys on the host for the same purpose.)
+derives threefry keys on the host for the same purpose.) A step's ranges
+(``torch.profiler.record_function``): ``train.prepare`` (its generator,
+the batch transform, the stripe) and ``train.step`` (``step_fn``); an
+epoch's: ``train.fetch`` (the metric sums to the host).
 
 With a ``mesh`` (JAX ``Trainer(mesh=...)``, ``loop.py:101-133``) the
 training is data-parallel over its ranks, every rank running this loop:
@@ -39,6 +42,7 @@ from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from wsiseg_tpu_torch.config import Config
 from wsiseg_tpu_torch.data.pipeline import prefetch_to_device
@@ -147,31 +151,34 @@ class Trainer:
         batches, rows_of, lead = self._data_parallel()
         n_rank = 1 if self.mesh is None else self.mesh.size(0)
         for epoch in range(start, end):
-            t0 = time.time()
+            t0 = time.perf_counter()
             sums: Dict[str, torch.Tensor] = {}
             count = n_samples = 0
             for i, batch in enumerate(prefetch_to_device(
                     batches(), depth=cfg.prefetch_depth,
                     device=self.device)):
-                gen = step_generator(cfg.seed, epoch, i, self.device)
-                n_local = int(next(iter(batch.values())).shape[0])
-                if self.preprocess_batch is not None:
-                    batch = self.preprocess_batch(batch, gen,
-                                                  rows=rows_of(n_local))
-                if self.mesh is not None:
-                    batch = take_stripe(self.mesh, batch)
+                with record_function("train.prepare"):
+                    gen = step_generator(cfg.seed, epoch, i, self.device)
+                    n_local = int(next(iter(batch.values())).shape[0])
+                    if self.preprocess_batch is not None:
+                        batch = self.preprocess_batch(batch, gen,
+                                                      rows=rows_of(n_local))
+                    if self.mesh is not None:
+                        batch = take_stripe(self.mesh, batch)
                 n_samples += n_local * n_rank
                 with comm.data_parallel(self.mesh), comm.spatial(self.mesh):
-                    metrics = self.step_fn(self.state, batch, gen)
+                    with record_function("train.step"):
+                        metrics = self.step_fn(self.state, batch, gen)
                 count += 1
                 for k, v in metrics.items():
                     sums[k] = v if k not in sums else sums[k] + v
             # one fetch drains the device queue, so dt covers the compute
             keys = sorted(sums)
-            vals = (torch.stack([sums[k].float() for k in keys]).cpu()
-                    .tolist() if keys else [])
+            with record_function("train.fetch"):
+                vals = (torch.stack([sums[k].float() for k in keys]).cpu()
+                        .tolist() if keys else [])
             avg = {k: v / max(count, 1) for k, v in zip(keys, vals)}
-            dt = time.time() - t0
+            dt = time.perf_counter() - t0
             rate = n_samples / dt if dt > 0 else 0.0
             if lead:
                 self.log(f"Epoch {epoch}: " +

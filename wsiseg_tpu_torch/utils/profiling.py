@@ -2,7 +2,6 @@
 the reference has none — tqdm bars only; patches/sec IS the metric for this
 workload).
 
-* :class:`Throughput` — rolling items/sec meter.
 * :func:`dense_forward_flops` — the analytic FLOPs of one Y-Net
   segmentation forward, for an MFU meter (two known faults, below).
 * :func:`detect_peak_tflops` — the card's dense bf16 tensor-core peak.
@@ -16,44 +15,9 @@ from __future__ import annotations
 
 import contextlib
 import time
-from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 import torch
-
-
-@dataclass
-class Throughput:
-    """Rolling throughput meter: ``update(n_items)`` per step. Neither
-    package's trainer loop nor engine uses it: the loops compute their
-    ``patches_per_sec`` themselves (``train/loop.py``)."""
-    window: int = 50
-    _times: List[float] = field(default_factory=list)
-    _counts: List[int] = field(default_factory=list)
-    total_items: int = 0
-    started: float = field(default_factory=time.time)
-
-    def update(self, n_items: int) -> None:
-        now = time.time()
-        self._times.append(now)
-        self._counts.append(n_items)
-        self.total_items += n_items
-        if len(self._times) > self.window:
-            self._times.pop(0)
-            self._counts.pop(0)
-
-    @property
-    def rate(self) -> float:
-        """items/sec over the rolling window."""
-        if len(self._times) < 2:
-            return 0.0
-        dt = self._times[-1] - self._times[0]
-        return sum(self._counts[1:]) / dt if dt > 0 else 0.0
-
-    @property
-    def mean_rate(self) -> float:
-        dt = time.time() - self.started
-        return self.total_items / dt if dt > 0 else 0.0
 
 
 # Dense bf16 tensor-core peak per card (TFLOP/s, NVIDIA's H100 data sheet,
@@ -173,7 +137,10 @@ def trace(log_dir: Optional[str], host_profile: bool = False,
     plugin and Perfetto/``chrome://tracing`` open (``log_dir=None``
     writes none). ``host_profile=True`` also records op shapes and Python
     stacks. ``device="cpu"`` records CPU activity only; a CUDA device
-    without a card raises. Yields the profiler (``key_averages()``).
+    without a card raises. Yields the profiler (``key_averages()``). The
+    trace holds the program's ``record_function`` ranges (``plan.*``,
+    ``pipeline.*``, ``engine.*``, ``loader.*``, ``train.*``) on the
+    threads that opened them.
 
     Usage::
         with profiling.trace("/tmp/torch-trace"):
