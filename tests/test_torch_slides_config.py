@@ -5,6 +5,7 @@ package's: the same configs, the same slide bytes through every reader
 
 import dataclasses
 import os
+import tracemalloc
 
 import numpy as np
 import pytest
@@ -91,6 +92,126 @@ def test_tile_grid_equals_jax(seed):
         for field in dataclasses.fields(rf):
             np.testing.assert_array_equal(getattr(g, field.name),
                                           getattr(rf, field.name))
+
+
+def _blobs(r, h, w, block, share):
+    """Seeded tissue-like foreground: random blocks of ``block`` px (about
+    ``share`` of them set) at a random offset, salted so window counts are
+    not multiples of a block."""
+    coarse = r.rand(h // block + 2, w // block + 2) < share
+    blobs = np.repeat(np.repeat(coarse, block, 0), block, 1)
+    oy, ox = r.randint(block), r.randint(block)
+    return blobs[oy:oy + h, ox:ox + w] ^ (r.rand(h, w) > 0.97)
+
+
+def _blob_mask(r, h, w):
+    """A {0,255} u8 mask at the benchmark's level-2 size and blob scale."""
+    return _blobs(r, h, w, 384, 0.4).astype(np.uint8) * 255
+
+
+def _masks(r, h, w):
+    """The same foreground as {0,1} u8, {0,255} u8, bool, {-1,1} i16
+    (background below zero) and a non-contiguous view (a slice of a wider
+    array). The left third is background, as a slide's margin."""
+    fg = _blobs(r, h, w, 48, 0.2)
+    fg[:, :w // 3] = False
+    wide = np.concatenate([fg, np.ones((h, 7), bool)], 1).astype(np.uint8)
+    return {"u8_01": fg.astype(np.uint8), "u8_0255": fg.astype(np.uint8) * 255,
+            "bool": fg, "i16_pm1": fg.astype(np.int16) * 2 - 1,
+            "view": wide[:, :w]}
+
+
+def _filter_case(name):
+    """(grid, mask, mask scale, the (x, y) origins kept or None)."""
+    r = np.random.RandomState(FILTER_CASES.index(name))
+    if name.startswith("scale"):
+        _, m, kind = name.split("_", 2)
+        m = {"0.25": 0.25, "2/3": 2 / 3, "1": 1.0, "4": 4.0}[m]
+        iw, ih = int(r.randint(600, 1500)), int(r.randint(600, 1500))
+        t = max(int(64 / m), 8)
+        grid = geometry.wsi_tile_grid(iw, ih, t, t, t // 2, t // 2)
+        # a few mask rows and columns short of the image: the edge-snap
+        # windows are clipped at the mask's far edge
+        mask = _masks(r, int(ih * m) - 3, int(iw * m) - 5)[kind]
+        assert kind != "view" or not mask.flags.c_contiguous
+        return grid, mask, m, None
+    if name == "far_edge":
+        mask = np.ones((40, 50), np.uint8)
+        grid = geometry.TileGrid(
+            np.array([0, 30, 45, 50, 60, 10, 12], np.int32),
+            np.array([0, 20, 35, 10, 0, 40, 45], np.int32), 16, 16, 70, 70)
+        # clipped windows are kept; windows starting at or beyond the
+        # edge are empty and dropped
+        return grid, mask, 1.0, [(0, 0), (30, 20), (45, 35)]
+    if name == "exact_thresh":
+        mask = np.zeros((64, 64), np.uint8)
+        mask[0, :20] = 1            # 20 of 400 = thresh · size: kept
+        mask[0, 30:49] = 1          # 19 of 400: dropped
+        mask[30, :21] = 1           # 21 of 400: kept
+        grid = geometry.TileGrid(np.array([0, 30, 0], np.int32),
+                                 np.array([0, 0, 30], np.int32),
+                                 20, 20, 64, 64)
+        return grid, mask, 1.0, [(0, 0), (0, 30)]
+    if name == "empty_grid":
+        grid = geometry.TileGrid(np.zeros(0, np.int32), np.zeros(0, np.int32),
+                                 32, 32, 256, 256)
+        return grid, np.ones((64, 64), np.uint8), 0.25, []
+    if name == "dy_zero":
+        grid = geometry.TileGrid(np.array([0, 8], np.int32),
+                                 np.array([4, 0], np.int32), 8, 3, 32, 32)
+        # a window under one mask row: the grid passes ungated
+        return grid, np.zeros((8, 8), np.uint8), 0.25, [(0, 4), (8, 0)]
+    if name == "short_slide":
+        # a level lower than the tile: the edge-snap row's origin is
+        # negative, and so is its window's top corner
+        grid = geometry.wsi_tile_grid(900, 200, 256, 256, 128, 128)
+        assert (grid.ys < 0).any()
+        mask = np.zeros((50, 225), np.uint8)
+        mask[30:, :100] = 1
+        mask[:30, 100:] = 1         # above the wrapped rows: not counted
+        return grid, mask, 0.25, None
+    assert name == "bench"
+    grid = geometry.wsi_tile_grid(4096, 3072, 512, 512, 128, 128)
+    return grid, _blob_mask(r, 3072, 4096), 1.0, None
+
+
+FILTER_CASES = ([f"scale_{m}_{k}" for m in ("0.25", "2/3", "1", "4")
+                 for k in ("u8_01", "u8_0255", "bool", "i16_pm1", "view")]
+                + ["far_edge", "exact_thresh", "empty_grid", "dy_zero",
+                   "short_slide", "bench"])
+
+
+@pytest.mark.parametrize("case", FILTER_CASES)
+def test_filter_grid_equals_jax(case):
+    grid, mask, m, kept = _filter_case(case)
+    ref_grid = jax_geometry.TileGrid(**{
+        f.name: getattr(grid, f.name) for f in dataclasses.fields(grid)})
+    got = geometry.filter_grid_by_mask(grid, mask, m)
+    ref = jax_geometry.filter_grid_by_mask(ref_grid, mask, m)
+    assert len(got) == len(ref)
+    for field in dataclasses.fields(ref):
+        a, b = getattr(got, field.name), getattr(ref, field.name)
+        np.testing.assert_array_equal(a, b)
+        assert np.asarray(a).dtype == np.asarray(b).dtype
+    if kept is not None:
+        assert list(zip(got.xs.tolist(), got.ys.tolist())) == kept
+    else:
+        assert 0 < len(got) < len(grid)
+
+
+def test_filter_grid_memory_stays_under_two_masks():
+    """The filter's scratch memory is about one band of the mask, not a
+    full-size table: its peak stays under twice the mask's bytes."""
+    mask = _blob_mask(np.random.RandomState(5), 3072, 4096)
+    grid = geometry.wsi_tile_grid(4096, 3072, 512, 512, 128, 128)
+    tracemalloc.start()
+    try:
+        got = geometry.filter_grid_by_mask(grid, mask, 1.0)
+        _, peak = tracemalloc.get_traced_memory()
+    finally:
+        tracemalloc.stop()
+    assert 0 < len(got) < len(grid)
+    assert peak < 2 * mask.nbytes, (peak, mask.nbytes)
 
 
 def test_make_folder_equals_jax(tmp_path):

@@ -89,24 +89,43 @@ def filter_grid_by_mask(grid: TileGrid, mask: np.ndarray,
     ``mask_scale`` maps scan-level coords to mask coords (the reference's
     ``m = level_downsamples[scan_level]/level_downsamples[2]``,
     utils/dataset.py:144-150). Windows are (ph*m, pw*m) in mask space.
+
+    The counts come from a summed-area table over the grid's cut lines
+    only: the windows' edges and the mask's. One pass over the mask in C
+    order sums whole rows into the bands between y cuts, then each band's
+    columns between x cuts. O(H·W + cuts) time, one band of scratch
+    memory, and the same tiles as the JAX twin's full-size table.
     """
     m = mask_scale
     dy, dx = int(grid.tile_h * m), int(grid.tile_w * m)
     if len(grid.xs) == 0 or dy <= 0 or dx <= 0:
         return grid
 
-    # summed-area table: per-window foreground counts in O(HW + N) instead
-    # of a Python loop with an O(window) count per tile
-    fg = (np.asarray(mask) > 0).astype(np.int64)
-    sat = np.zeros((fg.shape[0] + 1, fg.shape[1] + 1), np.int64)
-    sat[1:, 1:] = fg.cumsum(0).cumsum(1)
-    mh, mw = fg.shape
-
+    mask = np.asarray(mask)
+    mh, mw = mask.shape
     y0 = np.minimum((grid.ys * m).astype(np.int64), mh)
     x0 = np.minimum((grid.xs * m).astype(np.int64), mw)
     y1 = np.minimum(y0 + dy, mh)
     x1 = np.minimum(x0 + dx, mw)
-    counts = (sat[y1, x1] - sat[y0, x1] - sat[y1, x0] + sat[y0, x0])
+    # the lines of an (mh+1, mw+1) table the corners index; a negative
+    # corner (an origin above or left of the image) counts from the far
+    # end, as numpy indexing of the JAX twin's full table does
+    rows, cols = np.arange(mh + 1), np.arange(mw + 1)
+    ty0, ty1, tx0, tx1 = rows[y0], rows[y1], cols[x0], cols[x1]
+    cy = np.unique(np.concatenate(([0, mh], ty0, ty1)))
+    cx = np.unique(np.concatenate(([0, mw], tx0, tx1)))
+
+    # foreground per (band, segment); a band's column sums fit int32
+    cells = np.zeros((len(cy) - 1, len(cx) - 1), np.int64)
+    for k in range(len(cy) - 1):
+        band = (mask[cy[k]:cy[k + 1]] > 0).sum(0, dtype=np.int32)
+        cells[k] = np.add.reduceat(band, cx[:-1], dtype=np.int64)
+    sat = np.zeros((len(cy), len(cx)), np.int64)
+    sat[1:, 1:] = cells.cumsum(0).cumsum(1)
+
+    iy0, iy1 = np.searchsorted(cy, ty0), np.searchsorted(cy, ty1)
+    ix0, ix1 = np.searchsorted(cx, tx0), np.searchsorted(cx, tx1)
+    counts = (sat[iy1, ix1] - sat[iy0, ix1] - sat[iy1, ix0] + sat[iy0, ix0])
     sizes = (y1 - y0) * (x1 - x0)
     # empty windows are dropped, matching the previous per-window behavior
     keep = (sizes > 0) & (counts >= thresh * sizes)
