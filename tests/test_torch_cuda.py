@@ -13,7 +13,8 @@ the CPU (no kernel of the port launched) and the ``train`` CLI on the
 card; the proposal/HR ops on the card against the CPU: k-means seeds
 equal, Lloyd, SLIC, label propagation (exact), the HR ensemble in bf16
 and a float64 HR step; ``utils.profiling``'s CUDA forms (trace, allocator
-stats, ``timed``).
+stats, ``timed``); the MiT attention (cuDNN's kernel) against SDPA's
+math backend, and mit_b5 FPN's fused route on the card against the CPU.
 They skip where ``torch.cuda.is_available()`` is False. This file imports
 no JAX, so it also runs on a machine without it:
 
@@ -607,3 +608,57 @@ def test_profiling_on_the_card(cuda_device, tmp_path):
     assert len(lines) == 1 and lines[0].startswith("matmul: ")
     assert torch.isfinite(y).all()
     assert profiling.detect_peak_tflops() in profiling.PEAK_TFLOPS.values()
+
+
+@pytest.mark.parametrize("heads,n,m", [(1, 12288, 192), (2, 3072, 192),
+                                       (5, 768, 192), (8, 192, 192),
+                                       (3, 1000, 37)])
+def test_sr_attention_matches_math(cuda_device, heads, n, m):
+    """``sr_attention`` on the card (bf16, cuDNN's fused kernel) against
+    SDPA's math backend in float32 on the same bf16 operands, at MiT-B5's
+    four stage forms of a 384×512 image and one ragged shape: the output
+    is a convex combination of v's rows, and the kernel rounds the
+    probabilities and the output to bf16 (2^-9 relative each), so within
+    2^-7·max|v|."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from wsiseg_tpu_torch.ops import attention
+    g = torch.Generator(device=cuda_device).manual_seed(heads)
+    q, k, v = (torch.randn(2, heads, s, 64, device=cuda_device,
+                           generator=g).to(torch.bfloat16)
+               for s in (n, m, m))
+    before = attention.LAUNCHES
+    got = attention.sr_attention(q, k, v)
+    assert attention.LAUNCHES == before + 1 and got.dtype == torch.bfloat16
+    with sdpa_kernel([SDPBackend.MATH]):
+        want = torch.nn.functional.scaled_dot_product_attention(
+            q.float(), k.float(), v.float())
+    torch.testing.assert_close(got.float(), want, rtol=0,
+                               atol=TOL * float(v.float().abs().max()))
+
+
+def test_mit_engine_gpu_matches_cpu(cuda_device):
+    """mit_b5 FPN through the fused route on the card (bf16: cuDNN's
+    attention, no stem kernel) against the same route in float32 on the
+    CPU, on a 192×256 slide: logits within 1/16 of their spread (the CPU
+    test's bf16 bound), and one attention call a block (52)."""
+    from wsiseg_tpu_torch.models.infer_fast import prepare_fast, \
+        segment_from_image
+    from wsiseg_tpu_torch.ops import attention
+    cfg = default_config(tile_w=64, tile_h=64, tile_stride_w=32,
+                         tile_stride_h=32, model_name="FPN",
+                         arch_encoder="mit_b5")
+    slide = SyntheticSlide(width=4096, height=3072, num_levels=3, seed=11)
+    plan = plan_slide("syn", slide, cfg)
+    model = init_ynet(cfg, torch.Generator().manual_seed(0))
+    img = torch.from_numpy(np.ascontiguousarray(slide.read_level(2)))[None]
+    want = segment_from_image(prepare_fast(model, MEAN, STD, torch.float32),
+                              img)
+    eng = DenseInferenceEngine(model, cfg, device=cuda_device)
+    launches, stems = attention.LAUNCHES, stem.LAUNCHES
+    got = segment_from_image(eng.fast, img.to(cuda_device)).cpu()
+    assert attention.LAUNCHES == launches + 52 and stem.LAUNCHES == stems
+    spread = float(want.max() - want.min())
+    assert float((got - want).abs().max()) < spread / 16
+    res = eng.predict_slide_fcn(plan)
+    assert res.labels.shape == (192, 256)

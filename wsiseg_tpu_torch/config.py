@@ -26,7 +26,8 @@ KNOWN_LOSSES = (
 KNOWN_OPTIMIZERS = ("adam", "sgd", "adabound")
 # smp-style decoder architectures (reference myargs.py:9-10).
 KNOWN_MODELS = ("Unet", "FPN", "PSPNet", "Linknet")
-KNOWN_ENCODERS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152")
+KNOWN_ENCODERS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
+                  "mit_b5")
 
 
 @dataclass

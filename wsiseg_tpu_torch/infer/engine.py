@@ -29,6 +29,12 @@ routes). Two modes, as there:
   with nothing staged is read and run one band of chunks at a time
   (``predict_slide_fcn_banded``). Scan levels other than 2 resize the
   logit canvas to level 2 before the postprocess (``_postprocess``).
+  A MiT model (SegFormer's encoder, global attention) takes the fused
+  route only: no halo makes a chunk of it exact, so the chunked, banded,
+  fold and sharded-rows routes raise ``ValueError`` for it. Its attention
+  sees every pixel of the padded image, so its slides are padded only to
+  the FPN's multiples of 32: a slide whose sides are such multiples gets
+  the model's own whole-image output.
 
 ``keep_probs``/``keep_canvas`` return the probabilities and the logit
 canvas in JAX's ``(H, W, C)`` layout. The model's weights for the fused
@@ -78,6 +84,7 @@ from wsiseg_tpu_torch.models.fast_decoder import S2D_HEAD_F, \
     prepare_decode_fast, prepare_fold, space_to_depth, unet_segment_fast
 from wsiseg_tpu_torch.models.infer_fast import NATIVE_DECODERS, check_fold, \
     prepare_fast, segment_from_image
+from wsiseg_tpu_torch.models.mit import is_mit
 from wsiseg_tpu_torch.models.ynet import compute_copy
 from wsiseg_tpu_torch.ops.color import normalize
 from wsiseg_tpu_torch.ops.hull import convex_hull_image
@@ -105,6 +112,13 @@ FCN_GROUP_SLIDES = 4
 #: (4096×3072). Larger slides take the banded route.
 FCN_FAST_MAX_PX = int(FCN_DEVICE_BUDGET
                       // (FCN_PEAK_BYTES_PER_PX * FCN_GROUP_SLIDES))
+#: The same for mit_b5 FPN (SegFormer's encoder, whose attention keeps no
+#: score matrix): 3.7354 GB around ``device_throughput`` at one 3072×4096
+#: slide = 296.9 B/px (244.1 a slide at four in flight; NVIDIA H100 80GB
+#: HBM3, PERF.md §6). Its cap: 64e9 / (297 B/px · 4) = 53.87 M px.
+MIT_PEAK_BYTES_PER_PX = 297
+MIT_FAST_MAX_PX = int(FCN_DEVICE_BUDGET
+                      // (MIT_PEAK_BYTES_PER_PX * FCN_GROUP_SLIDES))
 
 
 def fcn_stripe_geometry(h: int, w: int, n_dev: int) -> Tuple[int, int]:
@@ -175,7 +189,10 @@ class DenseInferenceEngine:
         #: the fold route (JAX ``fcn_fold``, ``engine.py:464-471``), opt-in;
         #: Unet on BasicBlock encoders only
         self.fcn_fold = False
-        self.fcn_fast_max_px = FCN_FAST_MAX_PX
+        self.fcn_fast_max_px = (MIT_FAST_MAX_PX if is_mit(self.model.arch)
+                                else FCN_FAST_MAX_PX)
+        #: the fused route's width alignment (:meth:`_fcn_fast_dims`)
+        self.fcn_fast_w_align = 32 if is_mit(self.model.arch) else 256
         self._tile_net = None
         self._h2d_stream = None
         self._h2d_lock = threading.Lock()
@@ -193,11 +210,12 @@ class DenseInferenceEngine:
 
     # ---- geometry ----
 
-    @staticmethod
-    def _fcn_fast_dims(h: int, w: int) -> Tuple[int, int]:
+    def _fcn_fast_dims(self, h: int, w: int) -> Tuple[int, int]:
         """Pad dims for the whole-image path: H a multiple of 32 (even
-        dims at every pyramid stage), W a multiple of 256."""
-        return h + (-h) % 32, w + (-w) % 256
+        dims at every pyramid stage), W a multiple of ``fcn_fast_w_align``
+        (256, the stem kernel's row blocks; 32 for a MiT model, which has
+        no stem and whose attention sees every padded pixel)."""
+        return h + (-h) % 32, w + (-w) % self.fcn_fast_w_align
 
     def _fcn_fast_ok(self) -> bool:
         """The fused whole-image route serves: seg mode, no
@@ -411,6 +429,17 @@ class DenseInferenceEngine:
             self._streamed_batch(canvas, tiles, ys - y0, xs, valid)
         return canvas
 
+    def _refuse_chunks(self, route: str) -> None:
+        """Raise ``ValueError`` where ``route`` would cut a slide into
+        chunks or stripes for a model whose every output depends on the
+        whole image (MiT's attention): no halo makes such a chunk exact."""
+        if is_mit(self.model.arch):
+            raise ValueError(
+                f"{route} cuts the slide into halo-padded chunks, which no "
+                f"halo makes exact for {self.model.arch}'s global attention; "
+                f"{self.model.arch} takes the fused whole-image route only "
+                f"(seg mode, scan_resize 1, within fcn_fast_max_px)")
+
     def _fcn_full_pass(self, img_pad: torch.Tensor, chunk_h: int,
                        chunk_w: int, halo: int, ny: int,
                        nx: int) -> torch.Tensor:
@@ -418,6 +447,7 @@ class DenseInferenceEngine:
         through the tile forward, their centres written into an
         (ny·chunk_h, nx·chunk_w, nc) f32 canvas: each output pixel
         computed once."""
+        self._refuse_chunks("the chunked FCN")
         out = torch.zeros((ny * chunk_h, nx * chunk_w, self.cfg.num_classes),
                           dtype=torch.float32, device=self.device)
         for i in range(ny * nx):
@@ -778,6 +808,7 @@ class DenseInferenceEngine:
         kept at full resolution. Labels and heat equal
         ``predict_slide_fcn(chunk=chunk, halo=halo)`` exactly. Scan level
         2 only (stitch dims == canvas dims)."""
+        self._refuse_chunks("the banded FCN")
         cfg = self.cfg
         t0 = time.time()
         hs, ws = plan.stitch_hw
@@ -1040,6 +1071,7 @@ class DenseInferenceEngine:
         stripes are gathered and every rank finishes the slide. Equals
         ``predict_slide_fcn(chunk=fcn_stripe_geometry(h, w, n_dev))``.
         ``staged`` takes :meth:`stage_slide_fcn_rows`'s result."""
+        self._refuse_chunks("the sharded-rows FCN")
         t0 = time.time()
         if staged is None:
             staged = self.stage_slide_fcn_rows(plan, mesh, axis, halo)

@@ -13,6 +13,10 @@ counterpart of ``wsiseg_tpu/models/infer_fast.py``
   ``space_to_depth(c1)`` as their block-3 skip and emitting s2d(4) head
   planes, or FPN/PSPNet (:func:`.fast_decoder.decode_native`, native
   full-resolution logits: ``NATIVE_DECODERS``);
+- MiT (no JAX counterpart), SegFormer's encoder under FPN: the u8 image
+  normalised in float32 and rounded to the compute dtype, the patch
+  embeddings and stages (:func:`.mit.encode_image`), then the same
+  :func:`.fast_decoder.decode_native` as every FPN; no stem kernel;
 - fold (``infer_fast.py:229-253``), Unet on BasicBlock encoders only: the
   native stem (:func:`wsiseg_tpu_torch.ops.stem.stem_conv`) emits c1, the
   stages start from its max-pool, and :func:`.fast_decoder.decode_fold`
@@ -43,6 +47,7 @@ from wsiseg_tpu_torch.models.fast_decoder import (decode_cells, decode_fold,
                                                   prepare_linknet,
                                                   prepare_native)
 from wsiseg_tpu_torch.models.fast_encoder import encode_stages, prepare_encoder
+from wsiseg_tpu_torch.models.mit import encode_image, is_mit, prepare_mit
 from wsiseg_tpu_torch.models.resnet import is_bottleneck
 from wsiseg_tpu_torch.ops.stem import fold_from_encoder, pad_value, \
     prepare_stem_cells, stem_conv, stem_pool_conv
@@ -67,16 +72,19 @@ def check_fold(model) -> None:
 
 @dataclass
 class FastWeights:
-    """Everything the whole-image forward reads, prepared once."""
-    stem_w: torch.Tensor          # (7, 7, 3, 64), normalize+BN folded
-    stem_b: torch.Tensor          # (64,) f32
-    pad_rgb: Tuple[int, int, int]
-    enc: List[List[Dict[str, object]]]
+    """Everything the whole-image forward reads, prepared once. A MiT
+    model (``encoder`` "mit") has no stem (``stem_w``, ``stem_b`` and
+    ``pad_rgb`` None) and ``enc`` is :func:`.mit.prepare_mit`'s."""
+    stem_w: Optional[torch.Tensor]   # (7, 7, 3, 64), normalize+BN folded
+    stem_b: Optional[torch.Tensor]   # (64,) f32
+    pad_rgb: Optional[Tuple[int, int, int]]
+    enc: object
     dec: Dict[str, object]
     dtype: torch.dtype
     family: str = "Unet"          # the model's decoder
     fold: Optional[Dict[str, list]] = None   # decode_fold's layer groups
     stem_cells: Optional[torch.Tensor] = None  # the stem kernel's operand
+    encoder: str = "resnet"       # the encoder's family: "resnet" or "mit"
 
 
 @torch.no_grad()
@@ -87,6 +95,11 @@ def prepare_fast(model, mean: Sequence[float], std: Sequence[float],
     encoders only, :func:`check_fold`)."""
     if fold:
         check_fold(model)
+    if is_mit(model.arch):
+        return FastWeights(None, None, None,
+                           prepare_mit(model.encoder, mean, std, dtype),
+                           _PREPARE[model.model_name](model, dtype), dtype,
+                           model.model_name, encoder="mit")
     # the stem runs in bf16 (the kernel's contract) unless an f32 oracle
     # run asks for f32 throughout
     w, b = fold_from_encoder(model.encoder, mean, std,
@@ -111,7 +124,10 @@ def segment_from_image(fw: FastWeights, img_u8: torch.Tensor,
     ``prepare_fast(..., fold=True)``): native stem, encoder, and
     :func:`decode_fold` on ``conv9`` per layer (the JAX engine's
     ``use_chain=False``), giving (N, 4·nc, H/2, W/2) s2d(2) f32 planes
-    (``planar_head``), else (N, nc, H, W) f32."""
+    (``planar_head``), else (N, nc, H, W) f32. A MiT model (FPN) gives
+    (N, nc, H, W) f32."""
+    if fw.encoder == "mit":
+        return decode_native(fw.dec, encode_image(fw.enc, img_u8), fw.dtype)
     if fold:
         if fw.fold is None:
             raise ValueError("fold=True needs prepare_fast(..., fold=True)")

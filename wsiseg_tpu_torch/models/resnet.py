@@ -27,6 +27,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from wsiseg_tpu_torch.models.mit import MIT_SPECS, mit_out_channels
 from wsiseg_tpu_torch.parallel import comm, spatial
 from wsiseg_tpu_torch.parallel.spatial import Conv2d
 
@@ -204,19 +205,23 @@ ENCODER_SPECS = {
 
 
 def check_arch(arch: str) -> None:
-    if arch not in ENCODER_SPECS:
+    """Raise ``ValueError`` for an encoder the port lacks (the ResNets and
+    the Mix Transformers of :mod:`.mit`)."""
+    if arch not in ENCODER_SPECS and arch not in MIT_SPECS:
         raise ValueError(f"unknown encoder {arch!r}; expected one of "
-                         f"{tuple(ENCODER_SPECS)}")
+                         f"{tuple(ENCODER_SPECS) + tuple(MIT_SPECS)}")
 
 
 def is_bottleneck(arch: str) -> bool:
     check_arch(arch)
-    return ENCODER_SPECS[arch][0] is Bottleneck
+    return arch in ENCODER_SPECS and ENCODER_SPECS[arch][0] is Bottleneck
 
 
 def encoder_out_channels(arch: str) -> Tuple[int, ...]:
     """Deepest-first channel counts of the returned pyramid."""
     check_arch(arch)
+    if arch in MIT_SPECS:
+        return mit_out_channels(arch)
     e = ENCODER_SPECS[arch][0].expansion
     return (512 * e, 256 * e, 128 * e, 64 * e, 64)
 

@@ -1,5 +1,7 @@
 """Y-Net: shared ResNet encoder + decoder (Unet, Linknet, FPN or PSPNet)
 + classifier/regressor heads — counterpart of ``wsiseg_tpu/models/ynet.py``.
+SegFormer's Mix Transformer encoder (:mod:`.mit`, ``mit_b5``) serves under
+FPN only, as smp pairs them; the JAX package has no counterpart of it.
 
 Submodule names are smp's (``encoder``, ``decoder``,
 ``segmentation_head``) plus the reference's monkey-patched heads
@@ -31,6 +33,7 @@ from wsiseg_tpu_torch.config import Config
 from wsiseg_tpu_torch.models.decoders import (FPNDecoder, LinknetDecoder,
                                               PSPDecoder)
 from wsiseg_tpu_torch.models.heads import Classifier, Regressor, at_least_f32
+from wsiseg_tpu_torch.models.mit import MiTEncoder, is_mit
 from wsiseg_tpu_torch.models.resnet import ResNetEncoder, \
     encoder_out_channels
 from wsiseg_tpu_torch.models.unet import UNetDecoder
@@ -50,11 +53,15 @@ class YNet(nn.Module):
         if model_name not in HEADS:
             raise ValueError(f"unknown decoder {model_name!r}; expected one "
                              f"of {tuple(HEADS)}")
+        if is_mit(arch) and model_name != "FPN":
+            raise ValueError(f"{arch} serves under FPN only (smp's pairing; "
+                             f"it has no stride-2 level), not {model_name}")
         self.arch = arch
         self.model_name = model_name
         self.num_classes = num_classes
         enc_ch = encoder_out_channels(arch)
-        self.encoder = ResNetEncoder(arch)
+        self.encoder = MiTEncoder(arch) if is_mit(arch) else \
+            ResNetEncoder(arch)
         self.decoder = {"Unet": UNetDecoder, "Linknet": LinknetDecoder,
                         "FPN": FPNDecoder, "PSPNet": PSPDecoder}[model_name](
                             enc_ch)
@@ -138,14 +145,16 @@ def compute_copy(model: YNet, dtype: torch.dtype) -> YNet:
     grid path runs the flax Y-Net in ``cfg.compute_dtype``: conv and dense
     weights in ``dtype`` (each conv's output rounded to ``dtype``, as
     flax's), each BatchNorm a :class:`FlaxBatchNorm`, conv weights in
-    ``channels_last``. Feed it inputs in ``dtype``."""
+    ``channels_last``; a MiT encoder's LayerNorms in ``dtype`` too (their
+    statistics are float32 whatever the operands). Feed it inputs in
+    ``dtype``."""
     m = copy.deepcopy(model)
     for mod in list(m.modules()):
         for name, child in list(mod.named_children()):
             if isinstance(child, nn.BatchNorm2d):
                 setattr(mod, name, FlaxBatchNorm(child))
     for mod in m.modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+        if isinstance(mod, (nn.Conv2d, nn.Linear, nn.LayerNorm)):
             mod.to(dtype)
     m = m.to(memory_format=torch.channels_last).eval()
     return m.requires_grad_(False)

@@ -11,7 +11,8 @@ level-2 synthetic slide, 4 classes, bf16, random weights from
 another decoder family or encoder):
 
 - CUDA-event ms per stage of the forward (stem, encoder, decoder,
-  postprocess + label packing), median of ``--iters``;
+  postprocess + label packing), median of ``--iters``; ``mit_b5`` has no
+  stem, its encoder starts from the u8 image;
 - ``torch.profiler`` over ``--iters`` steady engine runs: wall ms, summed
   kernel ms, the device's busy share, and kernel ms by class — the port's
   own kernels (``stem_sm90_kernel``, ``conv9_sm90_kernel``,
@@ -69,6 +70,7 @@ def _stages(engine, imgs, masks, iters: int) -> dict:
     from wsiseg_tpu_torch.models.fast_decoder import decode_fold
     from wsiseg_tpu_torch.models.fast_encoder import encode_stages
     from wsiseg_tpu_torch.models.infer_fast import decode
+    from wsiseg_tpu_torch.models.mit import encode_image
     from wsiseg_tpu_torch.ops.stem import stem_conv, stem_pool_conv
 
     fw = engine.fast
@@ -87,6 +89,12 @@ def _stages(engine, imgs, masks, iters: int) -> dict:
         out["decoder"] = _events_ms(lambda: decode_fold(
             fw.fold, feats, fw.dtype, use_chain=False, planar_head=True),
             iters)
+    elif fw.encoder == "mit":               # patch embeddings, no stem
+        feats = encode_image(fw.enc, imgs)
+        out["encoder"] = _events_ms(lambda: encode_image(fw.enc, imgs),
+                                    iters)
+        y = decode(fw, feats, None)
+        out["decoder"] = _events_ms(lambda: decode(fw, feats, None), iters)
     else:
         c1s2d, pool = stem_pool_conv(imgs, fw.stem_w, fw.stem_b, fw.pad_rgb,
                                      fw.stem_cells)
