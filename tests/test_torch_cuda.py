@@ -5,7 +5,9 @@ conv3x3_small and a one-layer conv_chain; the fused TMA/wgmma chain as
 conv_chain)
 against its plain PyTorch version, and the engine's kernel path (GPU)
 against its plain path (CPU) on the default and the fold route, and for
-each decoder family on the resnet50 encoder; the grid route (seg and cls)
+each decoder family on the resnet50 encoder; on both routes the fused
+outputs' depth-to-space on the card against the host interleave of the
+same planes; the grid route (seg and cls)
 GPU against CPU, and the streamed grid against the resident one on the
 card; the binary morphology, the tumor bed and the color mask on the card
 exactly equal to the CPU; a float64 training step on the card against
@@ -278,6 +280,35 @@ def test_engine_gpu_matches_cpu(cuda_device, fold):
     assert (gpu.labels == cpu.labels).mean() >= 0.99
     assert (np.abs(gpu.heatmap - cpu.heatmap) <= 2 / 255 + 1e-6).mean() \
         >= 0.99
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_fused_outputs_equal_host_interleave_on_gpu(cuda_device, fold):
+    """The fused route's full-resolution labels and heat, made on the card
+    by the depth-to-space, against ``_interleave4`` of the same device
+    planes copied to the host, on a group of two slides: equal."""
+    cfg = default_config(tile_w=64, tile_h=64, tile_stride_w=32,
+                         tile_stride_h=32)
+    eng = DenseInferenceEngine(init_ynet(cfg, torch.Generator(
+        ).manual_seed(0)), cfg, device=cuda_device)
+    eng.fcn_fold = fold
+    plans = [plan_slide(f"s{k}", SyntheticSlide(
+        width=4096, height=3072, num_levels=3, seed=11 + k), cfg)
+        for k in range(2)]
+    with torch.no_grad():
+        batch, masks = eng._inputs(plans)
+        y = eng._forward(batch)
+        planes = eng._postprocess_planes(y, masks)
+        full = eng._postprocess_full(y, masks)
+    for p_dev, f_dev in zip(planes, full):
+        assert p_dev.shape[1] == (4 if fold else 16)
+        assert f_dev.device.type == "cuda" and f_dev.shape == (2, 192, 256)
+        host = f_dev.cpu().numpy()
+        for k, p in enumerate(plans):
+            hs, ws = p.stitch_hw
+            np.testing.assert_array_equal(
+                host[k, :hs, :ws],
+                eng._interleave4(p_dev[k].cpu().numpy(), hs, ws))
 
 
 @pytest.mark.parametrize("family", ["Unet", "Linknet", "FPN", "PSPNet"])

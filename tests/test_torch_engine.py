@@ -22,6 +22,7 @@ from wsiseg_tpu_torch.data.wsi_tiles import SlideCollection, plan_slide
 from wsiseg_tpu_torch.infer.engine import DenseInferenceEngine
 from wsiseg_tpu_torch.infer.evaluators import _pipelined_results
 from wsiseg_tpu_torch.infer import writers
+from wsiseg_tpu_torch.models.fast_decoder import depth_to_space
 from wsiseg_tpu_torch.models.flax_import import from_flax
 from wsiseg_tpu_torch.models.ynet import build_ynet, init_ynet
 from wsiseg_tpu_torch.ops.tissue import find_nuclei
@@ -102,18 +103,22 @@ def test_postprocess_s2d_matches_jax(cfg, flax_pair, engine):
     assert dh.max() <= 1
 
 
-def test_label_packing_roundtrip(engine):
-    lab = torch.from_numpy(np.random.RandomState(1).randint(
-        0, 4, (2, 16, 5, 7)).astype(np.uint8))
-    packed = engine._pack_labels(lab)
-    assert packed.shape == (2, 4, 5, 7)
-    for k in range(2):
+@pytest.mark.parametrize("f", [2, 4])
+def test_depth_to_space_matches_interleave4(f):
+    """The depth-to-space that ``_postprocess_full`` runs on the fused
+    route's u8 planes against the host interleave, cropped at odd sizes;
+    the host interleave against JAX's."""
+    planes = torch.from_numpy(np.random.RandomState(f).randint(
+        0, 256, (3, f * f, 5, 7)).astype(np.uint8))
+    full = depth_to_space(planes, f)[:, 0]
+    assert full.dtype == torch.uint8 and full.shape == (3, 5 * f, 7 * f)
+    assert full.is_contiguous()
+    for k, (hs, ws) in enumerate([(5 * f, 7 * f), (5 * f - 1, 7 * f - 3),
+                                  (3, 1)]):
+        want = DenseInferenceEngine._interleave4(planes[k].numpy(), hs, ws)
+        np.testing.assert_array_equal(full[k, :hs, :ws].numpy(), want)
         np.testing.assert_array_equal(
-            engine._unpack_labels(packed[k].numpy(), 16), lab[k].numpy())
-    planes = lab[0].numpy()
-    np.testing.assert_array_equal(
-        engine._interleave4(planes, 19, 27),
-        JaxEngine._interleave4(planes, 19, 27))
+            want, JaxEngine._interleave4(planes[k].numpy(), hs, ws))
 
 
 def test_whole_slice_matches_jax_engine(cfg, slide, flax_pair, engine):
@@ -157,14 +162,15 @@ def test_fold_route_matches_jax_engine(cfg, slide, flax_pair, fold_engine):
 
 
 def test_fold_route_head_and_throughput(cfg, slide, fold_engine):
-    """The fold head is s2d(2): four label planes pack into one byte, the
-    tissue mask is taken at half resolution, and device_throughput runs
-    the fold route too."""
+    """The fold head is s2d(2): the tissue mask is taken at half
+    resolution, the labels and heat leave the route at full resolution,
+    and device_throughput runs the fold route too."""
     plan = plan_slide("syn", slide, cfg)
     imgs, masks = fold_engine._inputs([plan])
     assert masks.shape == (1, 96, 128)
     labels, heat = fold_engine._run_fused(imgs, masks)
-    assert labels.shape == (1, 1, 96, 128) and heat.shape == (1, 4, 96, 128)
+    assert labels.shape == heat.shape == (1, 192, 256)
+    assert labels.dtype == heat.dtype == torch.uint8
     tp = fold_engine.device_throughput(plan, iters=1, slides_in_flight=2)
     assert tp["sec_per_slide"] > 0
 
@@ -179,6 +185,73 @@ def test_group_equals_per_slide(cfg, engine):
         assert g.name == one.name == p.name
         np.testing.assert_array_equal(g.labels, one.labels)
         np.testing.assert_array_equal(g.heatmap, one.heatmap)
+
+
+@pytest.fixture(scope="module")
+def fpn_engine(cfg):
+    c = cfg.replace(model_name="FPN", arch_encoder="resnet18")
+    return DenseInferenceEngine(
+        init_ynet(c, torch.Generator().manual_seed(0)), c, device="cpu")
+
+
+def _kept_bytes(a: np.ndarray) -> int:
+    """Bytes of the block of memory that ``a`` keeps alive."""
+    b = a.base
+    if isinstance(b, torch.Tensor):
+        return b.untyped_storage().nbytes()
+    return a.nbytes if b is None else b.nbytes
+
+
+#: engine fixture and each slide's level-0 (width, height); "crop" gives
+#: two stitch sizes under one padded geometry (150×200 and 140×144 in
+#: 160×256)
+SERVED_GROUPS = {
+    "unet": ("engine", [(4096, 3072), (4096, 3072)]),
+    "fold": ("fold_engine", [(4096, 3072), (4096, 3072)]),
+    "fpn": ("fpn_engine", [(4096, 3072), (4096, 3072)]),
+    "crop": ("engine", [(3200, 2400), (2304, 2240)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SERVED_GROUPS))
+def test_serve_equals_host_interleave(request, case):
+    """A group through ``_serve`` (depth-to-space on the device, each
+    slide's crop copied, the heat to f32 in one pass) against the host
+    path on the same planes: ``_interleave4`` of each slide's planes,
+    then ``astype(np.float32) / 255.0``. Bit for bit, and each slide's
+    arrays C-contiguous, holding only their own memory."""
+    fixture, sizes = SERVED_GROUPS[case]
+    eng = request.getfixturevalue(fixture)
+    plans = [plan_slide(f"s{k}", SyntheticSlide(width=w, height=h,
+                                                num_levels=3, seed=50 + k),
+                        eng.cfg) for k, (w, h) in enumerate(sizes)]
+    if case == "crop":
+        assert len({p.stitch_hw for p in plans}) == 2
+        assert all(eng._fcn_fast_dims(*p.stitch_hw) == (160, 256)
+                   for p in plans)
+    with torch.no_grad():
+        batch, masks = eng._inputs(plans)
+        labels_p, heat_p = eng._postprocess_planes(eng._forward(batch),
+                                                   masks)
+        got = eng._serve(plans)
+    assert labels_p.shape[1] == (4 if case == "fold" else 16)
+    arrays = []
+    for k, (p, res) in enumerate(zip(plans, got)):
+        hs, ws = p.stitch_hw
+        lab = eng._interleave4(labels_p[k].numpy(), hs, ws)
+        heat = eng._interleave4(heat_p[k].numpy(), hs,
+                                ws).astype(np.float32) / 255.0
+        assert res.name == p.name
+        assert res.labels.dtype == np.uint8 and res.labels.shape == (hs, ws)
+        assert res.heatmap.dtype == np.float32
+        assert res.heatmap.shape == (hs, ws)
+        assert np.array_equal(res.labels, lab)
+        assert np.array_equal(res.heatmap, heat)
+        for a in (res.labels, res.heatmap):
+            assert a.flags.c_contiguous and _kept_bytes(a) == a.nbytes
+            arrays.append(a)
+    assert not any(np.shares_memory(a, b) for i, a in enumerate(arrays)
+                   for b in arrays[i + 1:])
 
 
 def test_pipelined_groups_keep_pairing(cfg, engine):

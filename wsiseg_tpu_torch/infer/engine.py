@@ -18,8 +18,9 @@ routes). Two modes, as there:
   to the device, the stem kernel + functional Y-Net produce s2d(4) logit
   planes (every family; FPN/PSPNet's native logits are laid out as the
   same planes, :meth:`~DenseInferenceEngine._postprocess_native_planes`),
-  the planar postprocess runs on the device, labels are packed 2 bits
-  each, and the host interleaves the u8 planes. ``engine.fcn_fold = True``
+  the planar postprocess and a depth-to-space of its u8 label and heat
+  planes run on the device, and each slide's full-resolution labels and
+  heat are copied to the host. ``engine.fcn_fold = True``
   (opt-in, as in JAX) takes the fold route instead, for Unet on
   BasicBlock encoders only: the native stem kernel, the encoder and
   ``decode_fold`` on the conv kernels, whose head emits s2d(2) planes.
@@ -59,7 +60,7 @@ gathered result to its one host.
   batches on the host.
 - ``predict_slides_fcn_sharded``: slide-parallel, each rank serving its
   share of the slides through the fused route (one batched forward, as
-  :meth:`_serve`), the packed label and heat planes gathered.
+  :meth:`_serve`), the finished results gathered.
 - ``predict_slide_fcn_sharded_rows``: each rank runs the chunked FCN's
   tile forward on its own 255-padded halo stripe
   (:meth:`stage_slide_fcn_rows`); the stripes are gathered.
@@ -81,7 +82,8 @@ from wsiseg_tpu_torch.data.pipeline import prefetch_to_device
 from wsiseg_tpu_torch.data.wsi_tiles import SlidePlan
 from wsiseg_tpu_torch.models.decoders import resize_linear
 from wsiseg_tpu_torch.models.fast_decoder import S2D_HEAD_F, \
-    prepare_decode_fast, prepare_fold, space_to_depth, unet_segment_fast
+    depth_to_space, prepare_decode_fast, prepare_fold, space_to_depth, \
+    unet_segment_fast
 from wsiseg_tpu_torch.models.infer_fast import NATIVE_DECODERS, check_fold, \
     prepare_fast, segment_from_image
 from wsiseg_tpu_torch.models.mit import is_mit
@@ -533,26 +535,29 @@ class DenseInferenceEngine:
             return self._postprocess_native_planes(y, masks)
         return self._postprocess_s2d(y, masks)
 
-    def _pack_labels(self, labels_p: torch.Tensor) -> torch.Tensor:
-        """Labels fit 2 bits (nc ≤ 4): 4 position planes per byte, plane
-        j + m·f²/4 in bits 2m — 4× less device→host traffic."""
-        f2 = labels_p.shape[1]
-        if self.cfg.num_classes > 4 or f2 % 4:
-            return labels_p
-        g = f2 // 4
-        return (labels_p[:, :g] | (labels_p[:, g:2 * g] << 2)
-                | (labels_p[:, 2 * g:3 * g] << 4) | (labels_p[:, 3 * g:] << 6))
+    def _postprocess_full(self, y: torch.Tensor, masks: torch.Tensor):
+        """The fused forward's head output → (labels, heat), each (N, Hp,
+        Wp) u8 on the device: :meth:`_postprocess_planes`, then a
+        depth-to-space of each at f = :meth:`_head_f`, ``out[f·y + a,
+        f·x + b] = planes[a·f + b, y, x]`` (the batched
+        :meth:`_interleave4`, one copy)."""
+        f = self._head_f()
+        return tuple(depth_to_space(p, f)[:, 0]
+                     for p in self._postprocess_planes(y, masks))
 
     @staticmethod
-    def _unpack_labels(packed: np.ndarray, f2: int) -> np.ndarray:
-        """Host inverse of :meth:`_pack_labels` for one slide."""
-        if packed.shape[0] == f2:
-            return packed
-        return np.concatenate([(packed >> (2 * m)) & 3 for m in range(4)])
+    def _host_crops(plans: Sequence[SlidePlan],
+                    x: torch.Tensor) -> List[np.ndarray]:
+        """Slide k's ``x[k]`` cropped to its ``stitch_hw`` on the device and
+        copied into a host array of its own: C-contiguous, and no view of
+        the group's batch or of another slide."""
+        return [x[k, :p.stitch_hw[0], :p.stitch_hw[1]]
+                .to("cpu", copy=True).numpy() for k, p in enumerate(plans)]
 
     @staticmethod
     def _interleave4(planes: np.ndarray, hs: int, ws: int) -> np.ndarray:
-        """(f², H/f, W/f) position planes → (hs, ws) full resolution."""
+        """(f², H/f, W/f) position planes → (hs, ws) full resolution, on
+        the host."""
         n, hf, wf = planes.shape
         f = int(round(n ** 0.5))
         out = np.empty((f * hf, f * wf), planes.dtype)
@@ -581,14 +586,13 @@ class DenseInferenceEngine:
 
     def _run_fused(self, imgs: torch.Tensor, masks: torch.Tensor):
         """(N, Hp, Wp, 3) u8 + (N, Hp/f, Wp/f) u8 masks on the device →
-        (packed labels, heat planes) on the device, in ranges
-        ``engine.forward`` and ``engine.postprocess`` (postprocess and
-        pack)."""
+        (labels, heat), each (N, Hp, Wp) u8 on the device, in ranges
+        ``engine.forward`` and ``engine.postprocess``
+        (:meth:`_postprocess_full`)."""
         with record_function("engine.forward"):
             y = self._forward(imgs)
         with record_function("engine.postprocess"):
-            labels_p, heat_p = self._postprocess_planes(y, masks)
-            return self._pack_labels(labels_p), heat_p
+            return self._postprocess_full(y, masks)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -614,9 +618,10 @@ class DenseInferenceEngine:
     def _serve(self, plans: List[SlidePlan], imgs=None) -> List[SlideResult]:
         """A group through the fused route, in ranges under
         ``engine.serve``: ``engine.inputs`` (masks, staged images),
-        ``engine.launch`` (forward, postprocess, pack), ``engine.sync``
-        (the wait for what the device still runs), ``engine.d2h`` (the
-        copies) and ``engine.tail`` (unpack, interleave, heat to f32)."""
+        ``engine.launch`` (forward, postprocess, depth-to-space),
+        ``engine.sync`` (the wait for what the device still runs),
+        ``engine.d2h`` (each slide's cropped labels and heat copied) and
+        ``engine.tail`` (the heat to f32)."""
         with record_function("engine.serve"):
             t0 = time.perf_counter()
             with record_function("engine.inputs"):
@@ -627,24 +632,22 @@ class DenseInferenceEngine:
                 if self.device.type == "cuda":
                     torch.cuda.current_stream(self.device).synchronize()
             with record_function("engine.d2h"):
-                labels, heat = labels.cpu().numpy(), heat.cpu().numpy()
+                labels = self._host_crops(plans, labels)
+                heat = self._host_crops(plans, heat)
             per = (time.perf_counter() - t0) / len(plans)
             with record_function("engine.tail"):
                 return self._results(plans, labels, heat, per)
 
-    def _results(self, plans: Sequence[SlidePlan], labels: np.ndarray,
-                 heat: np.ndarray, per: float) -> List[SlideResult]:
-        """Each slide's result from the fused route's host planes (packed
-        labels and heat, slide k at index k)."""
-        f2 = self._head_f() ** 2
-        results = []
-        for k, p in enumerate(plans):
-            hs, ws = p.stitch_hw
-            lab = self._interleave4(self._unpack_labels(labels[k], f2),
-                                    hs, ws)
-            ht = self._interleave4(heat[k], hs, ws).astype(np.float32) / 255.0
-            results.append(SlideResult(p.name, lab, ht, len(p.grid), per))
-        return results
+    def _results(self, plans: Sequence[SlidePlan],
+                 labels: Sequence[np.ndarray], heat: Sequence[np.ndarray],
+                 per: float) -> List[SlideResult]:
+        """Each slide's result from its host labels and u8 heat
+        (:meth:`_host_crops`, slide k at index k): the heat to f32 in
+        [0, 1] in one pass."""
+        return [SlideResult(p.name, lab,
+                            np.divide(ht, np.float32(255), dtype=np.float32),
+                            len(p.grid), per)
+                for p, lab, ht in zip(plans, labels, heat)]
 
     def _predict_fcn_fast(self, plan: SlidePlan, keep_canvas: bool,
                           keep_probs: bool, img=None) -> SlideResult:
@@ -1007,7 +1010,7 @@ class DenseInferenceEngine:
                                    imgs=None) -> List[SlideResult]:
         """Slide-parallel serving (JAX ``engine.py:1042-1131``): rank r
         serves slides [r·per, (r+1)·per) through the fused route (one
-        batched forward and its host interleave, as :meth:`_serve`), and
+        batched forward and each slide's copies, as :meth:`_serve`), and
         the finished results are gathered to every rank
         (:func:`~wsiseg_tpu_torch.parallel.comm.gather_objects`). Needs
         k·n_dev slides of one padded geometry on the planar fused route.
@@ -1033,7 +1036,8 @@ class DenseInferenceEngine:
                       else imgs[k] for k in mine]
         own = [plans[k] for k in mine]
         labels, heat = self._run_fused(*self._inputs(own, staged))
-        res = self._results(own, labels.cpu().numpy(), heat.cpu().numpy(),
+        res = self._results(own, self._host_crops(own, labels),
+                            self._host_crops(own, heat),
                             (time.time() - t0) / len(plans))
         every = comm.gather_objects(res, mesh_group(mesh, axis))
         return [x for part in every for x in part]
@@ -1094,8 +1098,8 @@ class DenseInferenceEngine:
         reported PER SLIDE in grid-equivalent patches (len(plan.grid)):
         ``{"patches_per_sec", "sec_per_slide"}``.
 
-        - ``mode="fcn"`` (``chunk=None``, fused route): forward +
-          postprocess + label packing, ``slides_in_flight`` slides per
+        - ``mode="fcn"`` (``chunk=None``, fused route): forward,
+          postprocess and depth-to-space, ``slides_in_flight`` slides per
           batch (another scan level than 2: the canvas branch and
           :meth:`_postprocess`). ``mode="fcn_raw"`` is the same timed
           work: JAX's variant adds the TPU stem's device-side packing,

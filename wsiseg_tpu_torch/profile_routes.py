@@ -11,7 +11,7 @@ level-2 synthetic slide, 4 classes, bf16, random weights from
 another decoder family or encoder):
 
 - CUDA-event ms per stage of the forward (stem, encoder, decoder,
-  postprocess + label packing), median of ``--iters``; ``mit_b5`` has no
+  postprocess + depth-to-space), median of ``--iters``; ``mit_b5`` has no
   stem, its encoder starts from the u8 image;
 - ``torch.profiler`` over ``--iters`` steady engine runs: wall ms, summed
   kernel ms, the device's busy share, and kernel ms by class — the port's
@@ -108,11 +108,8 @@ def _stages(engine, imgs, masks, iters: int) -> dict:
         y = decode(fw, feats, skip)
         out["decoder"] = _events_ms(lambda: decode(fw, feats, skip), iters)
 
-    def post():
-        labels, heat = engine._postprocess_planes(y, masks)
-        return engine._pack_labels(labels), heat
-
-    out["postprocess"] = _events_ms(post, iters)
+    out["postprocess"] = _events_ms(
+        lambda: engine._postprocess_full(y, masks), iters)
     return out
 
 
