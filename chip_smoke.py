@@ -1937,7 +1937,7 @@ def phase_tools(dev, tmp: str, smi: str) -> dict:
     that pyramid; the file is a placeholder. Two cuts, both host loops the
     JAX tools share: the SLIC mode runs on a 1024×768 level 2 (the same
     image and layout scaled by 1/4), as it builds a full-size mask a
-    superpixel (ROADMAP.md §2, speed item 1; 0.28 s a region at
+    superpixel (ROADMAP.md §1, item 7; 0.28 s a region at
     4096×3072); ``closest-regionproposal`` reads ``mk-gt``'s class mask
     resized to 256×192, as its k-NN concave hull walks every perimeter
     pixel at full resolution, quadratic in their count. The CPU run gets the card's SLIC labels, so the store

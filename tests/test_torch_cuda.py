@@ -285,8 +285,11 @@ def test_engine_gpu_matches_cpu(cuda_device, fold):
 @pytest.mark.parametrize("fold", [False, True])
 def test_fused_outputs_equal_host_interleave_on_gpu(cuda_device, fold):
     """The fused route's full-resolution labels and heat, made on the card
-    by the depth-to-space, against ``_interleave4`` of the same device
-    planes copied to the host, on a group of two slides: equal."""
+    by the depth-to-space, against the JAX engine's host interleave
+    (``out[a::f, b::f] = planes[a·f + b]``, written out here: this file
+    imports no JAX) of the same device planes (``_postprocess_s2d`` of
+    the forward's head planes) copied to the host, on a group of two
+    slides: equal."""
     cfg = default_config(tile_w=64, tile_h=64, tile_stride_w=32,
                          tile_stride_h=32)
     eng = DenseInferenceEngine(init_ynet(cfg, torch.Generator(
@@ -298,17 +301,22 @@ def test_fused_outputs_equal_host_interleave_on_gpu(cuda_device, fold):
     with torch.no_grad():
         batch, masks = eng._inputs(plans)
         y = eng._forward(batch)
-        planes = eng._postprocess_planes(y, masks)
+        planes = eng._postprocess_s2d(y, masks)
         full = eng._postprocess_full(y, masks)
     for p_dev, f_dev in zip(planes, full):
         assert p_dev.shape[1] == (4 if fold else 16)
         assert f_dev.device.type == "cuda" and f_dev.shape == (2, 192, 256)
         host = f_dev.cpu().numpy()
+        f = 2 if fold else 4
         for k, p in enumerate(plans):
             hs, ws = p.stitch_hw
-            np.testing.assert_array_equal(
-                host[k, :hs, :ws],
-                eng._interleave4(p_dev[k].cpu().numpy(), hs, ws))
+            pl = p_dev[k].cpu().numpy()
+            want = np.empty((f * pl.shape[1], f * pl.shape[2]), pl.dtype)
+            for a in range(f):
+                for b in range(f):
+                    want[a::f, b::f] = pl[a * f + b]
+            np.testing.assert_array_equal(host[k, :hs, :ws],
+                                          want[:hs, :ws])
 
 
 @pytest.mark.parametrize("family", ["Unet", "Linknet", "FPN", "PSPNet"])
@@ -684,10 +692,11 @@ def test_mit_engine_gpu_matches_cpu(cuda_device):
     model = init_ynet(cfg, torch.Generator().manual_seed(0))
     img = torch.from_numpy(np.ascontiguousarray(slide.read_level(2)))[None]
     want = segment_from_image(prepare_fast(model, MEAN, STD, torch.float32),
-                              img)
+                              img, planar_head=False)
     eng = DenseInferenceEngine(model, cfg, device=cuda_device)
     launches, stems = attention.LAUNCHES, stem.LAUNCHES
-    got = segment_from_image(eng.fast, img.to(cuda_device)).cpu()
+    got = segment_from_image(eng.fast, img.to(cuda_device),
+                             planar_head=False).cpu()
     assert attention.LAUNCHES == launches + 52 and stem.LAUNCHES == stems
     spread = float(want.max() - want.min())
     assert float((got - want).abs().max()) < spread / 16

@@ -1,6 +1,7 @@
 """Port's serving slice (wsiseg_tpu_torch: tissue mask, engine,
 evaluators, CLI) against the JAX engine on the same slides and weights."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -18,7 +19,8 @@ from wsiseg_tpu.infer.engine import DenseInferenceEngine as JaxEngine
 from wsiseg_tpu.models.ynet import init_ynet as flax_init_ynet
 from wsiseg_tpu.ops.tissue import find_nuclei as jax_find_nuclei
 from wsiseg_tpu.slides import SyntheticSlide
-from wsiseg_tpu_torch.data.wsi_tiles import SlideCollection, plan_slide
+from wsiseg_tpu_torch.data.wsi_tiles import SlideCollection, plan_slide, \
+    resize_mask_to
 from wsiseg_tpu_torch.infer.engine import DenseInferenceEngine
 from wsiseg_tpu_torch.infer.evaluators import _pipelined_results
 from wsiseg_tpu_torch.infer import writers
@@ -78,8 +80,7 @@ def test_resize_mask_matches_pil(src, dst):
     m = np.random.RandomState(src[0]).randint(0, 3, src).astype(np.uint8)
     ref = np.asarray(Image.fromarray(m).resize((dst[1], dst[0]),
                                                Image.NEAREST))
-    np.testing.assert_array_equal(
-        DenseInferenceEngine._resize_mask_to(m, dst), ref)
+    np.testing.assert_array_equal(resize_mask_to(m, dst), ref)
 
 
 def test_postprocess_s2d_matches_jax(cfg, flax_pair, engine):
@@ -106,8 +107,8 @@ def test_postprocess_s2d_matches_jax(cfg, flax_pair, engine):
 @pytest.mark.parametrize("f", [2, 4])
 def test_depth_to_space_matches_interleave4(f):
     """The depth-to-space that ``_postprocess_full`` runs on the fused
-    route's u8 planes against the host interleave, cropped at odd sizes;
-    the host interleave against JAX's."""
+    route's u8 planes against JAX's host interleave, cropped at odd
+    sizes."""
     planes = torch.from_numpy(np.random.RandomState(f).randint(
         0, 256, (3, f * f, 5, 7)).astype(np.uint8))
     full = depth_to_space(planes, f)[:, 0]
@@ -115,10 +116,9 @@ def test_depth_to_space_matches_interleave4(f):
     assert full.is_contiguous()
     for k, (hs, ws) in enumerate([(5 * f, 7 * f), (5 * f - 1, 7 * f - 3),
                                   (3, 1)]):
-        want = DenseInferenceEngine._interleave4(planes[k].numpy(), hs, ws)
-        np.testing.assert_array_equal(full[k, :hs, :ws].numpy(), want)
         np.testing.assert_array_equal(
-            want, JaxEngine._interleave4(planes[k].numpy(), hs, ws))
+            full[k, :hs, :ws].numpy(),
+            JaxEngine._interleave4(planes[k].numpy(), hs, ws))
 
 
 def test_whole_slice_matches_jax_engine(cfg, slide, flax_pair, engine):
@@ -216,10 +216,11 @@ SERVED_GROUPS = {
 @pytest.mark.parametrize("case", sorted(SERVED_GROUPS))
 def test_serve_equals_host_interleave(request, case):
     """A group through ``_serve`` (depth-to-space on the device, each
-    slide's crop copied, the heat to f32 in one pass) against the host
-    path on the same planes: ``_interleave4`` of each slide's planes,
-    then ``astype(np.float32) / 255.0``. Bit for bit, and each slide's
-    arrays C-contiguous, holding only their own memory."""
+    slide's crop copied, the heat to f32 in one pass) against the JAX
+    engine's host path on the same planes (``_postprocess_s2d`` of the
+    forward's head planes): ``_interleave4`` of each slide's planes, then
+    ``astype(np.float32) / 255.0``. Bit for bit, and each slide's arrays
+    C-contiguous, holding only their own memory."""
     fixture, sizes = SERVED_GROUPS[case]
     eng = request.getfixturevalue(fixture)
     plans = [plan_slide(f"s{k}", SyntheticSlide(width=w, height=h,
@@ -231,16 +232,15 @@ def test_serve_equals_host_interleave(request, case):
                    for p in plans)
     with torch.no_grad():
         batch, masks = eng._inputs(plans)
-        labels_p, heat_p = eng._postprocess_planes(eng._forward(batch),
-                                                   masks)
+        labels_p, heat_p = eng._postprocess_s2d(eng._forward(batch), masks)
         got = eng._serve(plans)
     assert labels_p.shape[1] == (4 if case == "fold" else 16)
     arrays = []
     for k, (p, res) in enumerate(zip(plans, got)):
         hs, ws = p.stitch_hw
-        lab = eng._interleave4(labels_p[k].numpy(), hs, ws)
-        heat = eng._interleave4(heat_p[k].numpy(), hs,
-                                ws).astype(np.float32) / 255.0
+        lab = JaxEngine._interleave4(labels_p[k].numpy(), hs, ws)
+        heat = JaxEngine._interleave4(heat_p[k].numpy(), hs,
+                                      ws).astype(np.float32) / 255.0
         assert res.name == p.name
         assert res.labels.dtype == np.uint8 and res.labels.shape == (hs, ws)
         assert res.heatmap.dtype == np.float32
@@ -365,6 +365,25 @@ def test_unported_routes_raise(cfg, what, monkeypatch):
     assert eval_tumorbed.main(["--sharded", "--mesh", "2x2", "--device",
                                "cpu", "--raw_val_pth", "/nonexistent"]) == {}
     assert asked == [(4, True)]
+
+
+def test_engine_decides_through_the_model_and_its_own_api():
+    """The engine asks the model's prepared weights what it needs of a
+    family (no ``is_mit``, no ``NATIVE_DECODERS``), and the evaluators
+    call only the engine's public methods (no underscore attribute of an
+    engine or of ``DenseInferenceEngine``)."""
+    pkg = os.path.join(REPO, "wsiseg_tpu_torch", "infer")
+    names = {n.id if isinstance(n, ast.Name) else n.name
+             for n in ast.walk(ast.parse(open(os.path.join(
+                 pkg, "engine.py")).read()))
+             if isinstance(n, (ast.Name, ast.alias))}
+    assert not names & {"is_mit", "NATIVE_DECODERS"}, names
+    tree = ast.parse(open(os.path.join(pkg, "evaluators.py")).read())
+    private = [(n.value.id, n.attr, n.lineno) for n in ast.walk(tree)
+               if isinstance(n, ast.Attribute) and n.attr.startswith("_")
+               and isinstance(n.value, ast.Name)
+               and n.value.id in ("engine", "DenseInferenceEngine")]
+    assert not private, private
 
 
 def test_port_imports_no_jax():

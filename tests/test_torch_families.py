@@ -232,9 +232,10 @@ def test_decode_native_matches_flax_f32(family, arch):
 
 
 def test_postprocess_native_planes_matches_jax():
-    """FPN/PSPNet logits at full resolution → the (16, H/4, W/4) planes of
-    the JAX engine's _postprocess_native_planes: equal labels, heat
-    within 1/255."""
+    """FPN/PSPNet logits at full resolution, laid out as the planes the
+    fused forward gives (``space_to_depth(seg, 4)``), through
+    ``_postprocess_s2d`` → the (16, H/4, W/4) planes of the JAX engine's
+    _postprocess_native_planes: equal labels, heat within 1/255."""
     cfg = default_config(class_probs=(0.1, 0.3, 0.2, 0.25))
     r = np.random.RandomState(6)
     seg = (r.randn(2, 32, 48, 4) * 2).astype(np.float32)
@@ -242,8 +243,8 @@ def test_postprocess_native_planes_matches_jax():
     stub = types.SimpleNamespace(cfg=cfg, mode="seg")
     engine = DenseInferenceEngine(init_ynet(cfg, torch.Generator()), cfg,
                                   device="cpu")
-    labels, heat = engine._postprocess_native_planes(
-        _nchw(seg), torch.from_numpy(mask))
+    labels, heat = engine._postprocess_s2d(
+        tfd.space_to_depth(_nchw(seg), 4), torch.from_numpy(mask))
     assert labels.shape == heat.shape == (2, 16, 8, 12)
     for k in range(2):
         jl, jh = JaxEngine._postprocess_native_planes(

@@ -24,7 +24,8 @@ from wsiseg_tpu.ops import stitch as jax_stitch
 from wsiseg_tpu.ops import threshold as jax_threshold
 from wsiseg_tpu.ops.color import normalize as jax_normalize
 from wsiseg_tpu.slides import SyntheticSlide
-from wsiseg_tpu_torch.data.wsi_tiles import SlideCollection, plan_slide
+from wsiseg_tpu_torch.data.wsi_tiles import SlideCollection, plan_slide, \
+    resize_mask_to
 from wsiseg_tpu_torch.infer.engine import DenseInferenceEngine
 from wsiseg_tpu_torch.infer.evaluators import _pipelined_results
 from wsiseg_tpu_torch.models.fast_decoder import prepare_decode_fast, \
@@ -248,11 +249,12 @@ def test_chunked_fcn_matches_jax(cfg, flax_pair, port_model, slide, mode,
     over one chunk, as JAX does."""
     jeng = JaxEngine(flax_pair[0], flax_pair[1], cfg, mode=mode)
     eng = DenseInferenceEngine(port_model, cfg, mode=mode, device="cpu")
-    assert eng._fcn_fast_ok() == (mode == "seg")
+    plan = plan_slide("s", slide, cfg)
+    assert (eng.fcn_group_key(plan) is not None) == (mode == "seg")
     kw = dict(chunk=chunk, halo=16, keep_canvas=True, keep_probs=True)
     ref = jeng.predict_slide_fcn(jax_plan_slide("s", slide, cfg,
                                                 mask_cache_dir=None), **kw)
-    res = eng.predict_slide_fcn(plan_slide("s", slide, cfg), **kw)
+    res = eng.predict_slide_fcn(plan, **kw)
     _agree(res, ref)
 
 
@@ -267,7 +269,9 @@ def test_scan_level1_fcn_canvas_branch_matches_jax(flax_pair, port_model,
     jeng.fcn_fast_interpret = True
     eng = DenseInferenceEngine(port_model, cfg, device="cpu")
     plan = plan_slide("s", slide, cfg)
-    assert not eng._fcn_planar_ok(plan) and eng._fcn_fast_fits(plan)
+    # served alone, but by the fused route: its image is staged
+    assert eng.fcn_group_key(plan) is None
+    assert eng.stage_slide_fcn(plan) is not None
     ref = jeng.predict_slide_fcn(jax_plan_slide("s", slide, cfg,
                                                 mask_cache_dir=None))
     res = eng.predict_slide_fcn(plan)
@@ -314,7 +318,7 @@ def test_fused_keep_matches_jax_f32_model(cfg, flax_pair, port_model,
         (model, variables), port = flax_pair, port_model
     eng = _fused_engine(port, cfg, False, torch.float32)
     plan = plan_slide("syn", fused_slide, cfg)
-    assert eng._fcn_planar_ok(plan) and eng._fcn_fast_fits(plan)
+    assert eng.fcn_group_key(plan) is not None
     res = eng.predict_slide_fcn(plan, keep_canvas=True, keep_probs=True)
     hs, ws = plan.stitch_hw
     img = eng._read_padded_level(plan)
@@ -438,7 +442,7 @@ def test_grid_matches_reference_stitch(cfg, slide):
     eng = DenseInferenceEngine(tm, cfg, device="cpu")
     plan = plan_slide("parity", slide, cfg)
     hs, ws = plan.stitch_hw
-    mask_full = eng._resize_mask_to(plan.mask, (hs, ws))
+    mask_full = resize_mask_to(plan.mask, (hs, ws))
     res = eng.predict_slide(plan, keep_canvas=True)
     pred, labels, heat_u8 = _reference_oracle(cfg, tm, plan, mask_full)
     canvas = res.canvas.transpose(2, 0, 1)
@@ -459,12 +463,12 @@ def test_grid_matches_reference_stitch(cfg, slide):
 # ---- device_throughput, evaluator, CLI ----
 
 def test_device_throughput_modes(cfg, port_model, slide):
-    """grid, fcn with a chunk and fcn_raw run on the CPU; slides_in_flight
-    > 1 is refused off the fused planar route, as in JAX."""
+    """grid and fcn with a chunk run on the CPU; slides_in_flight > 1 is
+    refused off the fused planar route, as in JAX, and JAX's ``fcn_raw``
+    (the TPU stem's packing) is no mode of the port's."""
     eng = DenseInferenceEngine(port_model, cfg, device="cpu")
     plan = plan_slide("s", slide, cfg)
-    for kw in ({"mode": "grid"}, {"mode": "fcn", "chunk": 64},
-               {"mode": "fcn_raw"}):
+    for kw in ({"mode": "grid"}, {"mode": "fcn", "chunk": 64}):
         tp = eng.device_throughput(plan, iters=1, **kw)
         assert tp["sec_per_slide"] > 0 and tp["patches_per_sec"] > 0
     with pytest.raises(ValueError, match="slides_in_flight"):

@@ -125,11 +125,11 @@ def test_fused_route_equals_reference(pair):
     fw = prepare_fast(prog, REF_CFG["dataset_mean"], REF_CFG["dataset_std"],
                       torch.float32)
     u8 = torch.from_numpy(img)[None]
-    got = segment_from_image(fw, u8)
+    got = segment_from_image(fw, u8, planar_head=False)
     torch.testing.assert_close(got, want, **TOL)
     fw16 = prepare_fast(prog, REF_CFG["dataset_mean"],
                         REF_CFG["dataset_std"], torch.bfloat16)
-    low = segment_from_image(fw16, u8)
+    low = segment_from_image(fw16, u8, planar_head=False)
     assert low.dtype == torch.float32 and low.shape == want.shape
     spread = float(want.max() - want.min())
     assert float((low - want).abs().max()) < spread / 16

@@ -61,8 +61,8 @@ def main(argv=None):
     if cmd not in COMMANDS:
         raise SystemExit(
             f"unknown command {cmd!r}; try: {', '.join(COMMANDS)} (the "
-            "JAX package's commands; ROADMAP.md, queue 1, lists what the "
-            "port still lacks)")
+            "JAX package's commands, every one ported; ROADMAP.md §4 lists "
+            "the configurations the port does not yet run)")
     return importlib.import_module(COMMANDS[cmd][0]).main(argv[1:])
 
 

@@ -1,5 +1,6 @@
-"""The bench geometry's synthetic level-2 image, shared by
-``chip_smoke.py`` and :mod:`wsiseg_tpu_torch.profile_routes`."""
+"""The bench geometry's synthetic level-2 image, used by
+``chip_smoke.py`` and the card's tests (``portbench/harness/slides.py``
+holds a vectorised twin)."""
 
 from __future__ import annotations
 

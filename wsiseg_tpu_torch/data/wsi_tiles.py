@@ -47,6 +47,23 @@ class SlidePlan:
         return h, w
 
 
+def resize_mask_to(mask: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
+    """A plan's mask at ``hw`` as u8, equal to PIL's
+    ``Image.resize(NEAREST)``: source index ``int(s/2 + k·s)`` accumulated
+    in double, s = in/out."""
+    if mask.shape == tuple(hw):
+        return mask.astype(np.uint8)
+
+    def index(n_in: int, n_out: int) -> np.ndarray:
+        s = n_in / n_out
+        steps = np.full(n_out, s)
+        steps[0] = s * 0.5
+        return np.cumsum(steps).astype(np.int64)
+
+    m = mask.astype(np.uint8)
+    return m[index(m.shape[0], hw[0])][:, index(m.shape[1], hw[1])]
+
+
 def plan_slide(name: str, slide: SlideReader, cfg: Config,
                path: Optional[str] = None,
                mask_cache_dir: Optional[str] = None) -> Optional[SlidePlan]:

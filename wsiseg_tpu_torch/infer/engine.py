@@ -17,7 +17,7 @@ routes). Two modes, as there:
   default is the fused whole-image route: the 255-padded level image goes
   to the device, the stem kernel + functional Y-Net produce s2d(4) logit
   planes (every family; FPN/PSPNet's native logits are laid out as the
-  same planes, :meth:`~DenseInferenceEngine._postprocess_native_planes`),
+  same planes, :func:`wsiseg_tpu_torch.models.infer_fast.decode`),
   the planar postprocess and a depth-to-space of its u8 label and heat
   planes run on the device, and each slide's full-resolution labels and
   heat are copied to the host. ``engine.fcn_fold = True``
@@ -37,9 +37,17 @@ routes). Two modes, as there:
   the FPN's multiples of 32: a slide whose sides are such multiples gets
   the model's own whole-image output.
 
+Every route decides each pixel through one gate (softmax, class floors,
+argmax: :func:`~wsiseg_tpu_torch.ops.threshold.gate`), quantises its heat
+with :func:`~wsiseg_tpu_torch.ops.threshold.heat_u8` and builds its
+results in :meth:`DenseInferenceEngine._results`. Which slides share a
+forward is :meth:`DenseInferenceEngine.fcn_group_key`'s decision.
 ``keep_probs``/``keep_canvas`` return the probabilities and the logit
-canvas in JAX's ``(H, W, C)`` layout. The model's weights for the fused
-route are converted once, when the engine is built
+canvas in JAX's ``(H, W, C)`` layout; on the planar route both are made
+on the device from the served forward's head planes. The model's weights
+for the fused route, and what the engine needs to know of the model
+(peak bytes a pixel, width alignment, whether chunks are exact), are
+prepared once, when the engine is built
 (:func:`wsiseg_tpu_torch.models.infer_fast.prepare_fast`); the fold
 route's and the tile forward's at their first use.
 
@@ -79,29 +87,23 @@ from torch.profiler import record_function
 
 from wsiseg_tpu_torch.config import Config
 from wsiseg_tpu_torch.data.pipeline import prefetch_to_device
-from wsiseg_tpu_torch.data.wsi_tiles import SlidePlan
+from wsiseg_tpu_torch.data.wsi_tiles import SlidePlan, resize_mask_to
 from wsiseg_tpu_torch.models.decoders import resize_linear
 from wsiseg_tpu_torch.models.fast_decoder import S2D_HEAD_F, \
-    depth_to_space, prepare_decode_fast, prepare_fold, space_to_depth, \
-    unet_segment_fast
-from wsiseg_tpu_torch.models.infer_fast import NATIVE_DECODERS, check_fold, \
-    prepare_fast, segment_from_image
-from wsiseg_tpu_torch.models.mit import is_mit
+    depth_to_space, prepare_decode_fast, prepare_fold, unet_segment_fast
+from wsiseg_tpu_torch.models.infer_fast import FCN_PEAK_BYTES_PER_PX, \
+    check_fold, prepare_fast, segment_from_image
 from wsiseg_tpu_torch.models.ynet import compute_copy
 from wsiseg_tpu_torch.ops.color import normalize
 from wsiseg_tpu_torch.ops.hull import convex_hull_image
 from wsiseg_tpu_torch.ops.morphology import bwperim, dilate, opening
 from wsiseg_tpu_torch.ops.stitch import gather_tiles, \
     scatter_add_scalar_tiles, scatter_add_tiles
-from wsiseg_tpu_torch.ops.threshold import threshold_probs_planar
+from wsiseg_tpu_torch.ops.threshold import gate, heat_u8, threshold_probs, \
+    threshold_probs_planar
 from wsiseg_tpu_torch.parallel import comm
 from wsiseg_tpu_torch.parallel.mesh import mesh_group, mesh_rank, mesh_size
 
-#: Peak device bytes per padded pixel of the fused whole-image route, for
-#: the widest family one card serves: resnet50 Linknet, 6.7607 GB around
-#: ``device_throughput`` at one 3072×4096 slide = 537.3 B/px (resnet18
-#: Unet 341.1; NVIDIA H100 80GB HBM3, ``chip_smoke.py``, PERF.md §5).
-FCN_PEAK_BYTES_PER_PX = 538
 #: Device bytes one slide group of the fused route may take: 64 GB of the
 #: card's 80, the rest left for the weights, the allocator's slack and the
 #: next group's staged images.
@@ -109,18 +111,12 @@ FCN_DEVICE_BUDGET = 64e9
 #: Slides per group the cap allows for: the CLI's default
 #: ``--slides_in_flight``.
 FCN_GROUP_SLIDES = 4
-#: Whole-image dispatch cap in padded pixels per slide:
-#: 64e9 / (538 B/px · 4 slides) = 29.74 M px, 2.4× the bench slide
-#: (4096×3072). Larger slides take the banded route.
+#: Whole-image dispatch cap in padded pixels per slide for the ResNet
+#: families: 64e9 / (538 B/px · 4 slides) = 29.74 M px, 2.4× the bench
+#: slide (4096×3072); mit_b5's is 53.87 M px (297 B/px). Larger slides
+#: take the banded route.
 FCN_FAST_MAX_PX = int(FCN_DEVICE_BUDGET
                       // (FCN_PEAK_BYTES_PER_PX * FCN_GROUP_SLIDES))
-#: The same for mit_b5 FPN (SegFormer's encoder, whose attention keeps no
-#: score matrix): 3.7354 GB around ``device_throughput`` at one 3072×4096
-#: slide = 296.9 B/px (244.1 a slide at four in flight; NVIDIA H100 80GB
-#: HBM3, PERF.md §6). Its cap: 64e9 / (297 B/px · 4) = 53.87 M px.
-MIT_PEAK_BYTES_PER_PX = 297
-MIT_FAST_MAX_PX = int(FCN_DEVICE_BUDGET
-                      // (MIT_PEAK_BYTES_PER_PX * FCN_GROUP_SLIDES))
 
 
 def fcn_stripe_geometry(h: int, w: int, n_dev: int) -> Tuple[int, int]:
@@ -191,10 +187,11 @@ class DenseInferenceEngine:
         #: the fold route (JAX ``fcn_fold``, ``engine.py:464-471``), opt-in;
         #: Unet on BasicBlock encoders only
         self.fcn_fold = False
-        self.fcn_fast_max_px = (MIT_FAST_MAX_PX if is_mit(self.model.arch)
-                                else FCN_FAST_MAX_PX)
-        #: the fused route's width alignment (:meth:`_fcn_fast_dims`)
-        self.fcn_fast_w_align = 32 if is_mit(self.model.arch) else 256
+        #: the fused route's cap in padded pixels a slide, at the model's
+        #: peak bytes a pixel (``FCN_FAST_MAX_PX`` for the ResNets)
+        self.fcn_fast_max_px = int(
+            FCN_DEVICE_BUDGET
+            // (self.fast.peak_bytes_per_px * FCN_GROUP_SLIDES))
         self._tile_net = None
         self._h2d_stream = None
         self._h2d_lock = threading.Lock()
@@ -214,13 +211,14 @@ class DenseInferenceEngine:
 
     def _fcn_fast_dims(self, h: int, w: int) -> Tuple[int, int]:
         """Pad dims for the whole-image path: H a multiple of 32 (even
-        dims at every pyramid stage), W a multiple of ``fcn_fast_w_align``
-        (256, the stem kernel's row blocks; 32 for a MiT model, which has
-        no stem and whose attention sees every padded pixel)."""
-        return h + (-h) % 32, w + (-w) % self.fcn_fast_w_align
+        dims at every pyramid stage), W a multiple of the model's
+        ``FastWeights.w_align`` (256, the stem kernel's row blocks; 32 for
+        a MiT model, which has no stem and whose attention sees every
+        padded pixel)."""
+        return h + (-h) % 32, w + (-w) % self.fast.w_align
 
     def _fcn_fast_ok(self) -> bool:
-        """The fused whole-image route serves: seg mode, no
+        """The fused whole-image route serves this engine: seg mode, no
         ``scan_resize``, any family (the CPU takes the kernels' plain
         versions)."""
         return self.mode == "seg" and self.cfg.scan_resize == 1
@@ -229,11 +227,15 @@ class DenseInferenceEngine:
         hp, wp = self._fcn_fast_dims(*plan.stitch_hw)
         return hp * wp <= int(self.fcn_fast_max_px)
 
-    def _fcn_planar_ok(self, plan: SlidePlan) -> bool:
-        """Planar-s2d head applies when no canvas rescale is needed
-        (stitch dims == canvas dims, i.e. scan_level 2)."""
-        return (tuple(plan.stitch_hw) == tuple(plan.canvas_hw)
-                and self.mode == "seg")
+    def fcn_group_key(self, plan: SlidePlan) -> Optional[Tuple[int, int]]:
+        """The slide's padded dims when the fused planar route serves it
+        (seg mode, no ``scan_resize``, stitched at level 2, within
+        ``fcn_fast_max_px``): slides with one key may share a batched
+        forward. ``None``: the slide is served alone."""
+        if (self._fcn_fast_ok() and self._fcn_fast_fits(plan)
+                and tuple(plan.stitch_hw) == tuple(plan.canvas_hw)):
+            return self._fcn_fast_dims(*plan.stitch_hw)
+        return None
 
     @staticmethod
     def _fcn_geometry(h: int, w: int, chunk, halo: int):
@@ -262,22 +264,6 @@ class DenseInferenceEngine:
                                 np.zeros(pad, np.float32)]).reshape(-1, bs)
         return xs_p, ys_p, valid
 
-    @staticmethod
-    def _resize_mask_to(mask: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
-        """Nearest resize equal to PIL's ``Image.resize(NEAREST)``: source
-        index ``int(s/2 + k·s)`` accumulated in double, s = in/out."""
-        if mask.shape == tuple(hw):
-            return mask.astype(np.uint8)
-
-        def index(n_in: int, n_out: int) -> np.ndarray:
-            s = n_in / n_out
-            steps = np.full(n_out, s)
-            steps[0] = s * 0.5
-            return np.cumsum(steps).astype(np.int64)
-
-        m = mask.astype(np.uint8)
-        return m[index(m.shape[0], hw[0])][:, index(m.shape[1], hw[1])]
-
     def _half_mask(self, plan: SlidePlan, hwf_padded) -> np.ndarray:
         """Tissue mask at s2d cell resolution (1/f of the full output):
         resized over the TRUE stitch extent, zero-padded to the padded
@@ -286,11 +272,11 @@ class DenseInferenceEngine:
         hpf, wpf = hwf_padded
         hp, _ = self._fcn_fast_dims(hs, ws)
         f = max(1, round(hp / hpf))
-        m = self._resize_mask_to(plan.mask, (-(-hs // f), -(-ws // f)))
+        m = resize_mask_to(plan.mask, (-(-hs // f), -(-ws // f)))
         return np.pad(m, ((0, hpf - m.shape[0]), (0, wpf - m.shape[1])))
 
     def _level_mask(self, plan: SlidePlan, hw) -> torch.Tensor:
-        return torch.from_numpy(self._resize_mask_to(plan.mask, hw)) \
+        return torch.from_numpy(resize_mask_to(plan.mask, hw)) \
             .to(self.device)
 
     # ---- staging ----
@@ -332,9 +318,13 @@ class DenseInferenceEngine:
         :meth:`predict_slide` (the grid route's one-ahead staging)."""
         return self._stage(self._read_level(plan))
 
-    def stage_slide_fcn(self, plan: SlidePlan) -> StagedImage:
+    def stage_slide_fcn(self, plan: SlidePlan) -> Optional[StagedImage]:
         """Read + pad + upload a slide's level image for the fused FCN
-        route (range ``engine.stage``)."""
+        route (range ``engine.stage``); ``None`` for a slide the fused
+        route does not take (cls mode, ``scan_resize`` ≠ 1, over
+        ``fcn_fast_max_px``)."""
+        if not (self._fcn_fast_ok() and self._fcn_fast_fits(plan)):
+            return None
         with record_function("engine.stage"):
             return self._stage(self._read_padded_level(plan))
 
@@ -435,7 +425,7 @@ class DenseInferenceEngine:
         """Raise ``ValueError`` where ``route`` would cut a slide into
         chunks or stripes for a model whose every output depends on the
         whole image (MiT's attention): no halo makes such a chunk exact."""
-        if is_mit(self.model.arch):
+        if not self.fast.chunk_exact:
             raise ValueError(
                 f"{route} cuts the slide into halo-padded chunks, which no "
                 f"halo makes exact for {self.model.arch}'s global attention; "
@@ -478,24 +468,20 @@ class DenseInferenceEngine:
         labels, probs_p = threshold_probs_planar(canvas,
                                                  self.cfg.class_probs)
         heat = probs_p[1] if self.mode == "cls" else probs_p[2] + probs_p[3]
-        heat = heat * (mask_u8 > 0)
-        heat_u8 = torch.clamp(torch.round(heat * 255.0), 0, 255) \
-            .to(torch.uint8)
-        return labels, probs_p.permute(1, 2, 0), heat_u8
+        return labels, probs_p.permute(1, 2, 0), heat_u8(heat, mask_u8)
 
-    def _finish(self, plan: SlidePlan, canvas: torch.Tensor, n_tiles: int,
-                t0: float, keep_canvas: bool,
-                keep_probs: bool) -> SlideResult:
+    def _finish(self, plan: SlidePlan, canvas: torch.Tensor, t0: float,
+                keep_canvas: bool, keep_probs: bool) -> SlideResult:
         h2, w2 = plan.canvas_hw
-        labels, probs, heat_u8 = self._postprocess(
+        labels, probs, heat = self._postprocess(
             canvas, self._level_mask(plan, (h2, w2)), out_hw=(h2, w2))
-        labels = labels.cpu().numpy()
-        heat = heat_u8.cpu().numpy().astype(np.float32) / 255.0
-        kept_probs = probs.cpu().numpy() if keep_probs else None
-        kept_canvas = canvas.cpu().numpy() if keep_canvas else None
-        return SlideResult(plan.name, labels, heat, n_tiles,
-                           time.time() - t0, probs=kept_probs,
-                           canvas=kept_canvas)
+        res, = self._results([plan], [labels.cpu().numpy()],
+                             [heat.cpu().numpy()], time.time() - t0)
+        if keep_probs:
+            res.probs = probs.cpu().numpy()
+        if keep_canvas:
+            res.canvas = canvas.cpu().numpy()
+        return res
 
     def _postprocess_s2d(self, y_s: torch.Tensor, mask2_u8: torch.Tensor):
         """(N, f²·nc, H/f, W/f) logits (channel pos·nc + c) and (N, H/f,
@@ -504,46 +490,18 @@ class DenseInferenceEngine:
         heat = P(2) + P(3) masked, quantized to u8."""
         nc = self.cfg.num_classes
         n, c, hf, wf = y_s.shape
-        g = y_s.float().reshape(n, c // nc, nc, hf, wf)
-        pr = torch.softmax(g, dim=2)
-        floors = torch.tensor(self.cfg.class_probs, dtype=torch.float32,
-                              device=pr.device).view(1, 1, nc, 1, 1)
-        pr = torch.where(pr < floors, torch.zeros_like(pr), pr)
-        labels_p = torch.argmax(pr, dim=2).to(torch.uint8)
-        heat = (pr[:, :, 2] + pr[:, :, 3]) * (mask2_u8 > 0)[:, None]
-        heat_p = torch.clamp(torch.round(heat * 255.0), 0, 255) \
-            .to(torch.uint8)
-        return labels_p, heat_p
-
-    def _postprocess_native_planes(self, seg: torch.Tensor,
-                                   mask4_u8: torch.Tensor):
-        """(N, nc, H, W) native logits (FPN, PSPNet) → the planes of
-        :meth:`_postprocess_s2d` at f = ``S2D_HEAD_F``: the logits laid out
-        as s2d(4) planes (channel pos·nc + c), then the same postprocess.
-        Plane a·4 + b is x[a::4, b::4], as :meth:`_interleave4` expects,
-        and the tissue mask applies at 1/4 resolution, as in JAX
-        (``engine.py:302-329``, which takes the softmax at full resolution
-        first: the same values, per pixel)."""
-        return self._postprocess_s2d(space_to_depth(seg, S2D_HEAD_F),
-                                     mask4_u8)
-
-    def _postprocess_planes(self, y: torch.Tensor, masks: torch.Tensor):
-        """The fused forward's head output → (labels, heat) planes: native
-        logits (FPN, PSPNet) through :meth:`_postprocess_native_planes`,
-        head planes through :meth:`_postprocess_s2d`."""
-        if self.fast.family in NATIVE_DECODERS:
-            return self._postprocess_native_planes(y, masks)
-        return self._postprocess_s2d(y, masks)
+        labels_p, pr = gate(y_s.float().reshape(n, c // nc, nc, hf, wf),
+                            self.cfg.class_probs, 2)
+        return labels_p, heat_u8(pr[:, :, 2] + pr[:, :, 3], mask2_u8[:, None])
 
     def _postprocess_full(self, y: torch.Tensor, masks: torch.Tensor):
-        """The fused forward's head output → (labels, heat), each (N, Hp,
-        Wp) u8 on the device: :meth:`_postprocess_planes`, then a
+        """The fused forward's head planes → (labels, heat), each (N, Hp,
+        Wp) u8 on the device: :meth:`_postprocess_s2d`, then a
         depth-to-space of each at f = :meth:`_head_f`, ``out[f·y + a,
-        f·x + b] = planes[a·f + b, y, x]`` (the batched
-        :meth:`_interleave4`, one copy)."""
+        f·x + b] = planes[a·f + b, y, x]``."""
         f = self._head_f()
         return tuple(depth_to_space(p, f)[:, 0]
-                     for p in self._postprocess_planes(y, masks))
+                     for p in self._postprocess_s2d(y, masks))
 
     @staticmethod
     def _host_crops(plans: Sequence[SlidePlan],
@@ -553,18 +511,6 @@ class DenseInferenceEngine:
         the group's batch or of another slide."""
         return [x[k, :p.stitch_hw[0], :p.stitch_hw[1]]
                 .to("cpu", copy=True).numpy() for k, p in enumerate(plans)]
-
-    @staticmethod
-    def _interleave4(planes: np.ndarray, hs: int, ws: int) -> np.ndarray:
-        """(f², H/f, W/f) position planes → (hs, ws) full resolution, on
-        the host."""
-        n, hf, wf = planes.shape
-        f = int(round(n ** 0.5))
-        out = np.empty((f * hf, f * wf), planes.dtype)
-        for a in range(f):
-            for b in range(f):
-                out[a::f, b::f] = planes[a * f + b]
-        return out[:hs, :ws]
 
     # ---- fused whole-image route ----
 
@@ -641,9 +587,9 @@ class DenseInferenceEngine:
     def _results(self, plans: Sequence[SlidePlan],
                  labels: Sequence[np.ndarray], heat: Sequence[np.ndarray],
                  per: float) -> List[SlideResult]:
-        """Each slide's result from its host labels and u8 heat
-        (:meth:`_host_crops`, slide k at index k): the heat to f32 in
-        [0, 1] in one pass."""
+        """Each slide's result from its host labels and u8 heat (slide k
+        at index k), ``per`` seconds each: the heat to f32 in [0, 1] in one
+        pass. Every route builds its results here."""
         return [SlideResult(p.name, lab,
                             np.divide(ht, np.float32(255), dtype=np.float32),
                             len(p.grid), per)
@@ -651,47 +597,42 @@ class DenseInferenceEngine:
 
     def _predict_fcn_fast(self, plan: SlidePlan, keep_canvas: bool,
                           keep_probs: bool, img=None) -> SlideResult:
-        """The fused route for one slide (JAX ``_predict_fcn_fast``). With
-        ``keep_probs``/``keep_canvas`` the head planes also come back and
-        the host interleaves each class (FPN and PSPNet, whose logits are
-        native, take the canvas branch instead); a slide stitched at
-        another scan level than 2 takes the canvas branch too, through
-        :meth:`_finish`."""
+        """The fused route for one slide (JAX ``_predict_fcn_fast``):
+        :meth:`_serve`. With ``keep_probs``/``keep_canvas`` a planar slide
+        runs the same device work, and the canvas is the head planes
+        turned to (H, W, nc) by a depth-to-space on the device, the probs
+        the one gate over it. FPN and PSPNet, whose kept heat JAX masks at
+        full resolution, and a slide stitched at another scan level than 2
+        take the canvas branch, through :meth:`_finish`."""
+        imgs = None if img is None else [img]
         keep = keep_probs or keep_canvas
-        if self._fcn_planar_ok(plan) and not (
-                self.fast.family in NATIVE_DECODERS and keep):
+        if self.fcn_group_key(plan) is not None and not (
+                keep and self.fast.native):
             if not keep:
-                return self._serve([plan], None if img is None else [img])[0]
+                return self._serve([plan], imgs)[0]
             t0 = time.time()
-            batch, masks = self._inputs([plan],
-                                        None if img is None else [img])
-            y_s = self._forward(batch)
-            labels_p, heat_p = self._postprocess_planes(y_s, masks)
+            batch, masks = self._inputs([plan], imgs)
+            y = self._forward(batch)
+            labels, heat = self._postprocess_full(y, masks)
+            res, = self._results([plan], self._host_crops([plan], labels),
+                                 self._host_crops([plan], heat),
+                                 time.time() - t0)
             hs, ws = plan.stitch_hw
-            labels = self._interleave4(labels_p[0].cpu().numpy(), hs, ws)
-            heat = self._interleave4(heat_p[0].cpu().numpy(), hs,
-                                     ws).astype(np.float32) / 255.0
-            yp = y_s[0].float().cpu().numpy()         # (f²·nc, H/f, W/f)
-            nc = self.cfg.num_classes
-            full = np.stack([self._interleave4(yp[c::nc], hs, ws)
-                             for c in range(nc)], axis=-1)
-            probs = None
+            canvas = depth_to_space(y.float(), self._head_f())[0] \
+                .permute(1, 2, 0)[:hs, :ws].contiguous()
             if keep_probs:
-                ex = np.exp(full - full.max(-1, keepdims=True))
-                pr = ex / ex.sum(-1, keepdims=True)
-                fl = np.asarray(self.cfg.class_probs, np.float32)
-                probs = np.where(pr < fl, 0.0, pr)
-            return SlideResult(plan.name, labels, heat, len(plan.grid),
-                               time.time() - t0, probs=probs,
-                               canvas=full if keep_canvas else None)
+                res.probs = threshold_probs(canvas, self.cfg.class_probs)[1] \
+                    .cpu().numpy()
+            if keep_canvas:
+                res.canvas = canvas.cpu().numpy()
+            return res
         t0 = time.time()
         hs, ws = plan.stitch_hw
         x = self._take(img if img is not None
                        else self.stage_slide_fcn(plan))[None]
         canvas = self._forward(x, planar_head=False)[0] \
             .permute(1, 2, 0)[:hs, :ws]
-        return self._finish(plan, canvas, len(plan.grid), t0, keep_canvas,
-                            keep_probs)
+        return self._finish(plan, canvas, t0, keep_canvas, keep_probs)
 
     # ---- public API ----
 
@@ -711,8 +652,7 @@ class DenseInferenceEngine:
         xs_p, ys_p, valid = self._pad_grid(plan.grid.xs, plan.grid.ys,
                                            self.batch)
         self._full_pass(img, canvas, ys_p, xs_p, valid)
-        return self._finish(plan, canvas, len(plan.grid), t0, keep_canvas,
-                            keep_probs)
+        return self._finish(plan, canvas, t0, keep_canvas, keep_probs)
 
     def _host_batches(self, plan: SlidePlan, xs_p, ys_p, valid,
                       nthreads: int, y0: int = 0):
@@ -759,8 +699,7 @@ class DenseInferenceEngine:
                 depth=cfg.prefetch_depth, device=self.device):
             self._streamed_batch(canvas, b["tiles"], b["ys"], b["xs"],
                                  b["valid"])
-        return self._finish(plan, canvas, len(plan.grid), t0, keep_canvas,
-                            keep_probs)
+        return self._finish(plan, canvas, t0, keep_canvas, keep_probs)
 
     @torch.no_grad()
     def predict_slide_fcn(self, plan: SlidePlan, chunk=None, halo: int = 128,
@@ -769,7 +708,7 @@ class DenseInferenceEngine:
                           img: Optional[StagedImage] = None) -> SlideResult:
         """ScanNet-style FCN mode: each output pixel computed once.
         ``chunk=None`` runs the fused whole-image route where it serves
-        (:meth:`_fcn_fast_ok`, within ``fcn_fast_max_px``); an int or
+        (seg mode, no ``scan_resize``, within ``fcn_fast_max_px``); an int or
         tuple ``chunk`` (and cls mode, ``scan_resize`` ≠ 1) runs
         halo-padded chunks through the tile forward. A slide over
         ``fcn_fast_max_px`` with nothing staged takes the banded route;
@@ -795,8 +734,7 @@ class DenseInferenceEngine:
         canvas = self._fcn_full_pass(self._pad_255(img, halo, ny * ch,
                                                    nx * cw),
                                      ch, cw, halo, ny, nx)[:hs, :ws]
-        return self._finish(plan, canvas, len(plan.grid), t0, keep_canvas,
-                            keep_probs)
+        return self._finish(plan, canvas, t0, keep_canvas, keep_probs)
 
     @torch.no_grad()
     def predict_slide_fcn_banded(self, plan: SlidePlan, chunk=None,
@@ -824,9 +762,9 @@ class DenseInferenceEngine:
             chunk = (min(4096, hs + (-hs) % 32), min(4096, ws + (-ws) % 32))
         ch, cw, ny, nx = self._fcn_geometry(hs, ws, chunk, halo)
         ds = plan.slide.level_downsamples[cfg.scan_level]
-        mask_full = self._resize_mask_to(plan.mask, (hs, ws))
+        mask_full = resize_mask_to(plan.mask, (hs, ws))
         labels = np.empty((hs, ws), np.uint8)
-        heat_u8 = np.empty((hs, ws), np.uint8)
+        heat = np.empty((hs, ws), np.uint8)
         canvas_h = (np.empty((hs, ws, cfg.num_classes), np.float32)
                     if keep_canvas else None)
         probs_h = (np.empty((hs, ws, cfg.num_classes), np.float32)
@@ -849,29 +787,26 @@ class DenseInferenceEngine:
             lb, pb, hb = self._postprocess(bc, mrow)
             sl = slice(iy * ch, iy * ch + rows)
             labels[sl] = lb.cpu().numpy()
-            heat_u8[sl] = hb.cpu().numpy()
+            heat[sl] = hb.cpu().numpy()
             if keep_canvas:
                 canvas_h[sl] = bc.cpu().numpy()
             if keep_probs:
                 probs_h[sl] = pb.cpu().numpy()
-        return SlideResult(plan.name, labels,
-                           heat_u8.astype(np.float32) / 255.0,
-                           len(plan.grid), time.time() - t0,
-                           probs=probs_h, canvas=canvas_h)
+        res, = self._results([plan], [labels], [heat], time.time() - t0)
+        res.probs, res.canvas = probs_h, canvas_h
+        return res
 
     @torch.no_grad()
     def predict_slides_fcn(self, plans, imgs=None) -> List[SlideResult]:
         """Serve a GROUP of same-geometry slides as one batched forward
-        (slides as the batch dimension). A group the fused planar route
-        cannot serve as one (one slide, mixed dims, cls mode, another scan
-        level, oversize) falls back to :meth:`predict_slide_fcn` per
+        (slides as the batch dimension). A group whose slides do not share
+        one :meth:`fcn_group_key` (one slide, mixed dims, cls mode, another
+        scan level, oversize) falls back to :meth:`predict_slide_fcn` per
         slide. ``imgs`` optionally supplies staged images, index-aligned
         with ``plans``."""
         plans = list(plans)
-        dims = {self._fcn_fast_dims(*p.stitch_hw) for p in plans}
-        if (len(plans) == 1 or len(dims) != 1 or not self._fcn_fast_ok()
-                or not all(self._fcn_planar_ok(p) and self._fcn_fast_fits(p)
-                           for p in plans)):
+        keys = {self.fcn_group_key(p) for p in plans}
+        if len(plans) == 1 or None in keys or len(keys) != 1:
             return [self.predict_slide_fcn(
                 p, img=None if imgs is None else imgs[k])
                 for k, p in enumerate(plans)]
@@ -946,7 +881,7 @@ class DenseInferenceEngine:
                              device=self.device)
         self._full_pass(img, canvas, ys_p[r], xs_p[r], valid[r])
         canvas = comm.global_sum(canvas, mesh_group(mesh, axis))
-        return self._finish(plan, canvas, n, t0, keep_canvas, keep_probs)
+        return self._finish(plan, canvas, t0, keep_canvas, keep_probs)
 
     @torch.no_grad()
     def predict_slide_sharded_rows(self, plan: SlidePlan, mesh,
@@ -972,8 +907,7 @@ class DenseInferenceEngine:
                             dtype=torch.float32, device=self.device)
         self._full_pass(img, local, ys_s, xs_s, val_s, y0=r * stripe)
         canvas = self._merge_stripes(local, stripe, n_halo, hs, group)
-        return self._finish(plan, canvas, len(plan.grid), t0, keep_canvas,
-                            keep_probs)
+        return self._finish(plan, canvas, t0, keep_canvas, keep_probs)
 
     @torch.no_grad()
     def predict_slide_streamed_sharded(self, plan: SlidePlan, mesh,
@@ -1002,8 +936,7 @@ class DenseInferenceEngine:
                                  b["valid"])
         canvas = self._merge_stripes(local, stripe, n_halo, hs,
                                      mesh_group(mesh, axis))
-        return self._finish(plan, canvas, len(plan.grid), t0, keep_canvas,
-                            keep_probs)
+        return self._finish(plan, canvas, t0, keep_canvas, keep_probs)
 
     @torch.no_grad()
     def predict_slides_fcn_sharded(self, plans, mesh, axis: str = "data",
@@ -1013,16 +946,13 @@ class DenseInferenceEngine:
         batched forward and each slide's copies, as :meth:`_serve`), and
         the finished results are gathered to every rank
         (:func:`~wsiseg_tpu_torch.parallel.comm.gather_objects`). Needs
-        k·n_dev slides of one padded geometry on the planar fused route.
-        ``imgs`` optionally supplies padded host images (numpy) or staged
-        images, index-aligned with ``plans``."""
+        k·n_dev slides of one :meth:`fcn_group_key`. ``imgs`` optionally
+        supplies padded host images (numpy) or staged images,
+        index-aligned with ``plans``."""
         plans = list(plans)
         n_dev, r = mesh_size(mesh, axis), mesh_rank(mesh, axis)
-        dims = {self._fcn_fast_dims(*p.stitch_hw) for p in plans}
-        if (not plans or len(plans) % n_dev or len(dims) != 1
-                or not self._fcn_fast_ok()
-                or not all(self._fcn_planar_ok(p) and self._fcn_fast_fits(p)
-                           for p in plans)):
+        keys = {self.fcn_group_key(p) for p in plans}
+        if not plans or len(plans) % n_dev or None in keys or len(keys) != 1:
             raise ValueError(
                 "slide-parallel serving needs k*n_dev slides of identical "
                 "padded geometry on the planar fast path; use "
@@ -1087,8 +1017,7 @@ class DenseInferenceEngine:
         every = comm.gather_slots(out, mesh_group(mesh, axis))
         hs, ws = plan.stitch_hw
         canvas = every.reshape(-1, cw, out.shape[-1])[:hs, :ws]
-        return self._finish(plan, canvas, len(plan.grid), t0, keep_canvas,
-                            keep_probs)
+        return self._finish(plan, canvas, t0, keep_canvas, keep_probs)
 
     @torch.no_grad()
     def device_throughput(self, plan: SlidePlan, mode: str = "fcn",
@@ -1100,17 +1029,19 @@ class DenseInferenceEngine:
 
         - ``mode="fcn"`` (``chunk=None``, fused route): forward,
           postprocess and depth-to-space, ``slides_in_flight`` slides per
-          batch (another scan level than 2: the canvas branch and
-          :meth:`_postprocess`). ``mode="fcn_raw"`` is the same timed
-          work: JAX's variant adds the TPU stem's device-side packing,
-          and the port's stem reads the raw u8 image already.
+          batch (a slide with no :meth:`fcn_group_key`: the canvas branch
+          and :meth:`_postprocess`).
         - ``mode="fcn"`` with a ``chunk`` (or off the fused route):
           :meth:`_fcn_full_pass` + :meth:`_postprocess`.
         - ``mode="grid"``: :meth:`_full_pass` (seg or cls) +
           :meth:`_postprocess`.
 
         ``slides_in_flight > 1`` is refused off the fused planar route.
-        The default mode is ``"fcn"`` (JAX: ``"grid"``)."""
+        The default mode is ``"fcn"`` (JAX: ``"grid"``, and ``"fcn_raw"``,
+        which adds the TPU stem's packing: the port's stem reads the u8
+        image as it is)."""
+        if mode not in ("fcn", "grid"):
+            raise ValueError(f"mode must be 'fcn' or 'grid', got {mode!r}")
         cfg = self.cfg
         n = len(plan.grid)
         h2, w2 = plan.canvas_hw
@@ -1118,9 +1049,8 @@ class DenseInferenceEngine:
         mask = self._level_mask(plan, (h2, w2))
         n_per_iter = 1
 
-        if mode in ("fcn", "fcn_raw") and chunk is None \
-                and self._fcn_fast_ok():
-            if self._fcn_planar_ok(plan):
+        if mode == "fcn" and chunk is None and self._fcn_fast_ok():
+            if self.fcn_group_key(plan) is not None:
                 n_per_iter = max(1, int(slides_in_flight))
                 imgs, masks = self._inputs([plan])
                 imgs = imgs.expand(n_per_iter, -1, -1, -1).contiguous()
@@ -1129,17 +1059,13 @@ class DenseInferenceEngine:
                 def run():
                     return self._run_fused(imgs, masks)
             else:
-                img = self._take(self.stage_slide_fcn(plan))[None]
+                img = self._take(self._stage(
+                    self._read_padded_level(plan)))[None]
 
                 def run():
                     cv = self._forward(img, planar_head=False)[0] \
                         .permute(1, 2, 0)[:hs, :ws]
                     return self._postprocess(cv, mask, out_hw=(h2, w2))
-        elif mode == "fcn_raw":
-            raise ValueError(
-                "mode='fcn_raw' times the fused route, which does not serve "
-                "this engine (cls mode or scan_resize != 1); run "
-                "mode='fcn' instead")
         elif mode == "fcn":
             img = self._take(self.stage_slide(plan))
             h, w = img.shape[:2]
@@ -1164,7 +1090,7 @@ class DenseInferenceEngine:
         if slides_in_flight > 1 and n_per_iter == 1:
             raise ValueError(
                 "slides_in_flight > 1 requires the fused planar fcn route "
-                "(_fcn_fast_ok() and _fcn_planar_ok(plan)); refusing to "
+                "(fcn_group_key(plan) is not None); refusing to "
                 "report a single-slide number as the multi-slide "
                 "configuration")
         run()                                    # warm-up

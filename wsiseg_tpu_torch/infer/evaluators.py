@@ -32,7 +32,7 @@ from torch.profiler import record_function
 
 from wsiseg_tpu_torch.config import Config
 from wsiseg_tpu_torch.data.patches import normalize_batch_images
-from wsiseg_tpu_torch.data.wsi_tiles import SlideCollection
+from wsiseg_tpu_torch.data.wsi_tiles import SlideCollection, resize_mask_to
 from wsiseg_tpu_torch.infer import metrics as M
 from wsiseg_tpu_torch.infer import writers
 from wsiseg_tpu_torch.infer.engine import DenseInferenceEngine, \
@@ -70,13 +70,13 @@ def _pipelined_results(engine: DenseInferenceEngine,
     - ``streamed``: each slide's tile batches decoded on the host and
       prefetched (``predict_slide_streamed``).
     - ``fcn``: groups of up to ``engine.slides_in_flight`` consecutive
-      slides that share the padded geometry and fit the fused planar
-      route run as one batched forward (``predict_slides_fcn``); any other
-      slide is a group of its own. One-ahead staging on a worker thread
+      slides with one ``engine.fcn_group_key`` run as one batched forward
+      (``predict_slides_fcn``); a slide without one is a group of its own
+      (``predict_slide_fcn``). One-ahead staging on a worker thread
       overlaps the next group's host read and upload with this group's
-      compute; slides over ``fcn_fast_max_px`` are not staged (they take
-      the banded route, one band at a time). Off the fused route (cls
-      mode, ``scan_resize`` ≠ 1) nothing is staged. The wait on a
+      compute; ``stage_slide_fcn`` stages nothing for a slide the fused
+      route does not take (over ``fcn_fast_max_px``: the banded route,
+      one band at a time; cls mode, ``scan_resize`` ≠ 1). The wait on a
       group's staging is range ``pipeline.stage_wait``.
     - otherwise the grid: slide k+1's level image is staged
       (``stage_slide``) while slide k computes.
@@ -114,19 +114,12 @@ def _pipelined_results(engine: DenseInferenceEngine,
             yield name, plan, engine.predict_slide_sharded(plan, mesh)
         return
     if fcn:
-        if not engine._fcn_fast_ok():
-            for name, plan in items:
-                yield name, plan, engine.predict_slide_fcn(plan)
-            return
         n_flight = max(1, int(engine.slides_in_flight))
         groups, cur, cur_key = [], [], None
         for it in items:
-            plan = it[1]
-            key = (engine._fcn_planar_ok(plan)
-                   and engine._fcn_fast_fits(plan),
-                   engine._fcn_fast_dims(*plan.stitch_hw))
+            key = engine.fcn_group_key(it[1])
             if cur and (len(cur) == n_flight or key != cur_key
-                        or not key[0]):
+                        or key is None):
                 groups.append(cur)
                 cur = []
             cur_key = key
@@ -135,8 +128,7 @@ def _pipelined_results(engine: DenseInferenceEngine,
             groups.append(cur)
 
         def stage_group(g):
-            return [engine.stage_slide_fcn(p)
-                    if engine._fcn_fast_fits(p) else None for _, p in g]
+            return [engine.stage_slide_fcn(p) for _, p in g]
 
         with ThreadPoolExecutor(max_workers=1) as pool:
             staged = pool.submit(stage_group, groups[0]) if groups else None
@@ -240,7 +232,7 @@ def _lead(mesh) -> bool:
 
 def plan_mask_resized(plan, hw) -> np.ndarray:
     """The slide's tissue mask at ``hw``, NEAREST as PIL resizes it."""
-    return DenseInferenceEngine._resize_mask_to(plan.mask, hw)
+    return resize_mask_to(plan.mask, hw)
 
 
 def predict_tumorbed(engine: DenseInferenceEngine,

@@ -33,7 +33,8 @@ channels (smp's placeholder). Each stage runs in range ``mit.stage``.
 Whole-image only: a chunk of a slide, or a stripe of a tile, sees other
 keys than the whole image, so no halo makes it exact. The encoder refuses
 spatial training, and the engine refuses its chunked routes for a MiT
-model (:func:`is_mit`).
+model (``FastWeights.chunk_exact``, set by
+:func:`wsiseg_tpu_torch.models.infer_fast.prepare_fast`).
 """
 
 from __future__ import annotations
@@ -57,6 +58,12 @@ MIT_SPECS: Dict[str, Dict[str, Tuple[int, ...]]] = {
 }
 #: LayerNorm eps of the blocks and the stage norms (``norm_layer``)
 BLOCK_EPS = 1e-6
+#: Peak device bytes per padded pixel of the fused whole-image route for
+#: mit_b5 FPN (its attention keeps no score matrix): 3.7354 GB around
+#: ``device_throughput`` at one 3072×4096 slide = 296.9 B/px (244.1 a
+#: slide at four in flight; NVIDIA H100 80GB HBM3, PERF.md §6). The
+#: engine's cap: 64e9 / (297 B/px · 4 slides) = 53.87 M px.
+MIT_PEAK_BYTES_PER_PX = 297
 
 
 def is_mit(arch: str) -> bool:

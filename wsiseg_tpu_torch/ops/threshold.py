@@ -1,8 +1,11 @@
 """Per-class probability gating — counterpart of
 ``wsiseg_tpu/ops/threshold.py`` (``threshold_probs``,
 ``threshold_probs_planar``, ``pred_to_mask``), channels-last logits
-``(H, W, C)`` in, the same f32 arithmetic (max-shifted exp over the class
-axis, floors, argmax); ``pred_to_mask`` draws class perimeters with
+``(H, W, C)`` in, in f32: ``torch.softmax`` over the class axis (JAX
+takes the max-shifted exp over its sum; they agree within 1e-6), floors,
+argmax.
+:func:`gate` is the engine's every route's decision and :func:`heat_u8`
+its heat quantiser; ``pred_to_mask`` draws class perimeters with
 :mod:`wsiseg_tpu_torch.ops.morphology`.
 """
 
@@ -15,10 +18,12 @@ import torch
 from wsiseg_tpu_torch.ops.morphology import bwperim, dilate
 
 
-def _gate(x: torch.Tensor, class_probs: Sequence[float],
-          dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    e = torch.exp(x - x.amax(dim=dim, keepdim=True))
-    probs = e / e.sum(dim=dim, keepdim=True)
+def gate(x: torch.Tensor, class_probs: Sequence[float],
+         dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The engine's one decision per pixel: softmax of ``x`` over ``dim``
+    in its dtype, each class below its floor zeroed, argmax. Returns
+    (labels u8, probs); ``labels`` lacks ``dim``."""
+    probs = torch.softmax(x, dim=dim)
     shape = [1] * x.dim()
     shape[dim] = -1
     floors = torch.tensor(class_probs, dtype=probs.dtype,
@@ -27,11 +32,18 @@ def _gate(x: torch.Tensor, class_probs: Sequence[float],
     return torch.argmax(probs, dim=dim).to(torch.uint8), probs
 
 
+def heat_u8(heat: torch.Tensor, mask_u8: torch.Tensor) -> torch.Tensor:
+    """Heat in [0, 1] zeroed off the tissue (``mask_u8`` 0, broadcast) and
+    quantised to u8: ``clamp(round(heat · 255))``."""
+    heat = heat * (mask_u8 > 0)
+    return torch.clamp(torch.round(heat * 255.0), 0, 255).to(torch.uint8)
+
+
 def threshold_probs(logits: torch.Tensor, class_probs: Sequence[float]
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Softmax over classes, classes below their floor zeroed, argmax.
     (H, W, C) logits → (labels u8 (H, W), probs (H, W, C))."""
-    return _gate(logits.float(), class_probs, -1)
+    return gate(logits.float(), class_probs, -1)
 
 
 def threshold_probs_planar(logits: torch.Tensor,
@@ -39,7 +51,7 @@ def threshold_probs_planar(logits: torch.Tensor,
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`threshold_probs` computed on the planar (C, H, W) view of the
     (H, W, C) logits. Returns (labels u8 (H, W), probs (C, H, W))."""
-    return _gate(logits.permute(2, 0, 1).float(), class_probs, 0)
+    return gate(logits.permute(2, 0, 1).float(), class_probs, 0)
 
 
 def pred_to_mask(labels: torch.Tensor, num_classes: int,

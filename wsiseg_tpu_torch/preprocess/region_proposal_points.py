@@ -14,8 +14,8 @@ The tissue mask (``find_nuclei``), SLIC and the keypoints' k-means run on
 ``device`` (k-means++ seeds from ``np.random.RandomState`` on the host:
 centers differ from JAX's by design, ROADMAP.md §3); the connected
 components, hulls and contours on the host, as in JAX. The SLIC mode
-builds a full-size mask a superpixel, as JAX does (ROADMAP.md §2, speed
-item 1).
+builds a full-size mask a superpixel, as JAX does (ROADMAP.md §1, item
+7).
 """
 
 from __future__ import annotations
