@@ -16,7 +16,10 @@ card; the proposal/HR ops on the card against the CPU: k-means seeds
 equal, Lloyd, SLIC, label propagation (exact), the HR ensemble in bf16
 and a float64 HR step; ``utils.profiling``'s CUDA forms (trace, allocator
 stats, ``timed``); the MiT attention (cuDNN's kernel) against SDPA's
-math backend, and mit_b5 FPN's fused route on the card against the CPU.
+math backend, and mit_b5 FPN's fused route on the card against the CPU;
+a fused group's launch under ``torch.cuda.set_sync_debug_mode("error")``
+(no call that blocks the host) for resnet18 Unet, resnet50 FPN and mit_b5
+FPN, its results equal to the synchronous ``_serve``'s.
 They skip where ``torch.cuda.is_available()`` is False. This file imports
 no JAX, so it also runs on a machine without it:
 
@@ -702,3 +705,38 @@ def test_mit_engine_gpu_matches_cpu(cuda_device):
     assert float((got - want).abs().max()) < spread / 16
     res = eng.predict_slide_fcn(plan)
     assert res.labels.shape == (192, 256)
+
+
+@pytest.mark.parametrize("model_name,arch", [("Unet", "resnet18"),
+                                             ("FPN", "resnet50"),
+                                             ("FPN", "mit_b5")])
+def test_fused_launch_never_blocks_the_host(cuda_device, model_name, arch):
+    """A group of two 192×256 slides launched through the fused route
+    (``_launch``: masks up from pinned memory, forward, postprocess,
+    depth-to-space, each slide's copies into pinned host tensors, the
+    event after them) with CUDA's sync debug mode at "error", once the
+    route is warm: nothing raises, and the group's labels and heat equal
+    the synchronous ``_serve``'s."""
+    cfg = default_config(tile_w=64, tile_h=64, tile_stride_w=32,
+                         tile_stride_h=32, model_name=model_name,
+                         arch_encoder=arch)
+    eng = DenseInferenceEngine(init_ynet(cfg, torch.Generator(
+        ).manual_seed(0)), cfg, device=cuda_device)
+    plans = [plan_slide(f"s{k}", SyntheticSlide(
+        width=4096, height=3072, num_levels=3, seed=11 + k), cfg)
+        for k in range(2)]
+    with torch.no_grad():
+        want = eng._serve(plans)
+        imgs = [eng.stage_slide_fcn(p) for p in plans]
+        torch.cuda.synchronize()
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            group = eng._launch(plans, imgs)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        got = eng._collect(group)
+    for g, w in zip(got, want):
+        assert g.name == w.name
+        np.testing.assert_array_equal(g.labels, w.labels)
+        np.testing.assert_array_equal(g.heatmap, w.heatmap)

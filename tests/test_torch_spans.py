@@ -24,7 +24,7 @@ from wsiseg_tpu_torch.train.state import TrainState
 torch.set_num_threads(2)
 
 PLAN = ("plan.slide", "plan.mask", "plan.filter")
-SERVE = ("engine.inputs", "engine.launch", "engine.sync", "engine.d2h",
+SERVE = ("engine.inputs", "engine.launch", "engine.d2h", "engine.sync",
          "engine.tail")
 
 

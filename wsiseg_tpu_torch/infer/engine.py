@@ -20,7 +20,9 @@ routes). Two modes, as there:
   same planes, :func:`wsiseg_tpu_torch.models.infer_fast.decode`),
   the planar postprocess and a depth-to-space of its u8 label and heat
   planes run on the device, and each slide's full-resolution labels and
-  heat are copied to the host. ``engine.fcn_fold = True``
+  heat are copied to the host. A group's launch never blocks the host,
+  so the evaluator's next group is launched before this one is finished
+  (``predict_slides_fcn``'s ``ahead``). ``engine.fcn_fold = True``
   (opt-in, as in JAX) takes the fold route instead, for Unet on
   BasicBlock encoders only: the native stem kernel, the encoder and
   ``decode_fold`` on the conv kernels, whose head emits s2d(2) planes.
@@ -111,6 +113,9 @@ FCN_DEVICE_BUDGET = 64e9
 #: Slides per group the cap allows for: the CLI's default
 #: ``--slides_in_flight``.
 FCN_GROUP_SLIDES = 4
+#: Groups of the fused route finished while a later group was already
+#: enqueued behind them (``predict_slides_fcn``'s ``ahead``).
+AHEAD = 0
 #: Whole-image dispatch cap in padded pixels per slide for the ResNet
 #: families: 64e9 / (538 B/px · 4 slides) = 29.74 M px, 2.4× the bench
 #: slide (4096×3072); mit_b5's is 53.87 M px (297 B/px). Larger slides
@@ -154,6 +159,28 @@ class StagedImage:
     ready: Optional[torch.cuda.Event] = None
 
 
+@dataclass
+class LaunchedGroup:
+    """A fused group on its way to the host: its plans, each slide's
+    labels and u8 heat in host tensors of their own, filled in the
+    compute stream's order, the event recorded after their copies (None
+    off a card) and the ``perf_counter`` time its launch began."""
+    plans: List[SlidePlan]
+    labels: List[torch.Tensor]
+    heat: List[torch.Tensor]
+    done: Optional[torch.cuda.Event]
+    t0: float
+
+    def wait(self) -> None:
+        """Block the host until the group's copies are done."""
+        if self.done is not None:
+            self.done.synchronize()
+
+
+def _same_plans(a: Sequence[SlidePlan], b: Sequence[SlidePlan]) -> bool:
+    return len(a) == len(b) and all(x is y for x, y in zip(a, b))
+
+
 def resolve_device(device="cuda") -> torch.device:
     """``device`` as a ``torch.device``; raises ``RuntimeError`` for a CUDA
     device when none is present (entry points never fall back to the
@@ -195,6 +222,9 @@ class DenseInferenceEngine:
         self._tile_net = None
         self._h2d_stream = None
         self._h2d_lock = threading.Lock()
+        #: the group an earlier ``predict_slides_fcn`` launched as its
+        #: ``ahead``, not yet finished
+        self._ahead: Optional[LaunchedGroup] = None
 
     def refresh_weights(self) -> None:
         """Take the model's current weights (after training steps changed
@@ -505,12 +535,20 @@ class DenseInferenceEngine:
 
     @staticmethod
     def _host_crops(plans: Sequence[SlidePlan],
-                    x: torch.Tensor) -> List[np.ndarray]:
+                    x: torch.Tensor) -> List[torch.Tensor]:
         """Slide k's ``x[k]`` cropped to its ``stitch_hw`` on the device and
-        copied into a host array of its own: C-contiguous, and no view of
-        the group's batch or of another slide."""
-        return [x[k, :p.stitch_hw[0], :p.stitch_hw[1]]
-                .to("cpu", copy=True).numpy() for k, p in enumerate(plans)]
+        copied into a host tensor of its own: C-contiguous, and no view of
+        the group's batch or of another slide. On a card the tensor is
+        pinned and the copy enqueued on the current stream without
+        blocking the host: read it after that stream has passed it."""
+        pin = x.is_cuda
+        out = []
+        for k, p in enumerate(plans):
+            crop = x[k, :p.stitch_hw[0], :p.stitch_hw[1]]
+            out.append(torch.empty(crop.shape, dtype=crop.dtype,
+                                   pin_memory=pin).copy_(crop,
+                                                         non_blocking=pin))
+        return out
 
     # ---- fused whole-image route ----
 
@@ -546,7 +584,8 @@ class DenseInferenceEngine:
 
     def _inputs(self, plans: Sequence[SlidePlan], imgs=None):
         """Staged padded images and head-resolution masks of a group of
-        planar slides with one padded geometry."""
+        planar slides with one padded geometry. On a card the masks go up
+        from pinned memory without blocking the host."""
         dims = {self._fcn_fast_dims(*p.stitch_hw) for p in plans}
         if len(dims) != 1:
             raise ValueError(f"slides of one group must share padded "
@@ -555,34 +594,69 @@ class DenseInferenceEngine:
         f = self._head_f()
         masks = torch.from_numpy(np.stack(
             [self._half_mask(p, (hp // f, wp // f)) for p in plans]))
+        if self.device.type == "cuda":
+            masks = masks.pin_memory()
         if imgs is None:
             imgs = [self.stage_slide_fcn(p) for p in plans]
         batch = [self._take(s) for s in imgs]
         batch = batch[0][None] if len(batch) == 1 else torch.stack(batch)
-        return batch, masks.to(self.device)
+        return batch, masks.to(self.device, non_blocking=True)
+
+    def _copy_out(self, plans: Sequence[SlidePlan], labels: torch.Tensor,
+                  heat: torch.Tensor, t0: float) -> LaunchedGroup:
+        """Range ``engine.d2h``: each slide's cropped labels and heat
+        enqueued for the host (:meth:`_host_crops`), then the event that
+        marks their end."""
+        with record_function("engine.d2h"):
+            labels = self._host_crops(plans, labels)
+            heat = self._host_crops(plans, heat)
+            done = None
+            if self.device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+        return LaunchedGroup(list(plans), labels, heat, done, t0)
+
+    def _launch(self, plans: Sequence[SlidePlan], imgs=None
+                ) -> LaunchedGroup:
+        """A group enqueued through the fused route, the host blocked
+        nowhere: ``engine.inputs`` (masks, staged images), ``engine.launch``
+        (forward, postprocess, depth-to-space), ``engine.d2h`` (each
+        slide's copies into pinned host tensors and the event after
+        them, ahead of whatever the stream runs next)."""
+        t0 = time.perf_counter()
+        with record_function("engine.inputs"):
+            batch, masks = self._inputs(plans, imgs)
+        with record_function("engine.launch"):
+            labels, heat = self._run_fused(batch, masks)
+        return self._copy_out(plans, labels, heat, t0)
+
+    def _collect(self, group: LaunchedGroup) -> List[SlideResult]:
+        """A launched group's results: ``engine.sync`` (the host waits on
+        the group's event: its forward and copies done, whatever was
+        enqueued after them still running) and ``engine.tail`` (the heat
+        to f32)."""
+        with record_function("engine.sync"):
+            group.wait()
+        per = (time.perf_counter() - group.t0) / len(group.plans)
+        with record_function("engine.tail"):
+            return self._results(group.plans,
+                                 [t.numpy() for t in group.labels],
+                                 [t.numpy() for t in group.heat], per)
 
     def _serve(self, plans: List[SlidePlan], imgs=None) -> List[SlideResult]:
-        """A group through the fused route, in ranges under
-        ``engine.serve``: ``engine.inputs`` (masks, staged images),
-        ``engine.launch`` (forward, postprocess, depth-to-space),
-        ``engine.sync`` (the wait for what the device still runs),
-        ``engine.d2h`` (each slide's cropped labels and heat copied) and
-        ``engine.tail`` (the heat to f32)."""
+        """A group through the fused route, synchronously, in range
+        ``engine.serve``: :meth:`_launch` (``engine.inputs``,
+        ``engine.launch``, ``engine.d2h``), then :meth:`_collect`
+        (``engine.sync``, ``engine.tail``). Nothing is left pending."""
         with record_function("engine.serve"):
-            t0 = time.perf_counter()
-            with record_function("engine.inputs"):
-                batch, masks = self._inputs(plans, imgs)
-            with record_function("engine.launch"):
-                labels, heat = self._run_fused(batch, masks)
-            with record_function("engine.sync"):
-                if self.device.type == "cuda":
-                    torch.cuda.current_stream(self.device).synchronize()
-            with record_function("engine.d2h"):
-                labels = self._host_crops(plans, labels)
-                heat = self._host_crops(plans, heat)
-            per = (time.perf_counter() - t0) / len(plans)
-            with record_function("engine.tail"):
-                return self._results(plans, labels, heat, per)
+            return self._collect(self._launch(plans, imgs))
+
+    def drop_ahead(self) -> None:
+        """Wait for a group that ``predict_slides_fcn`` launched ahead and
+        drop it unread: afterwards nothing is pending."""
+        group, self._ahead = self._ahead, None
+        if group is not None:
+            group.wait()
 
     def _results(self, plans: Sequence[SlidePlan],
                  labels: Sequence[np.ndarray], heat: Sequence[np.ndarray],
@@ -610,13 +684,11 @@ class DenseInferenceEngine:
                 keep and self.fast.native):
             if not keep:
                 return self._serve([plan], imgs)[0]
-            t0 = time.time()
+            t0 = time.perf_counter()
             batch, masks = self._inputs([plan], imgs)
             y = self._forward(batch)
-            labels, heat = self._postprocess_full(y, masks)
-            res, = self._results([plan], self._host_crops([plan], labels),
-                                 self._host_crops([plan], heat),
-                                 time.time() - t0)
+            res, = self._collect(self._copy_out(
+                [plan], *self._postprocess_full(y, masks), t0))
             hs, ws = plan.stitch_hw
             canvas = depth_to_space(y.float(), self._head_f())[0] \
                 .permute(1, 2, 0)[:hs, :ws].contiguous()
@@ -796,21 +868,51 @@ class DenseInferenceEngine:
         res.probs, res.canvas = probs_h, canvas_h
         return res
 
+    def _one_forward(self, plans: Sequence[SlidePlan]) -> bool:
+        """Two or more slides with one :meth:`fcn_group_key`: the group
+        shares one batched forward."""
+        keys = {self.fcn_group_key(p) for p in plans}
+        return len(plans) > 1 and None not in keys and len(keys) == 1
+
     @torch.no_grad()
-    def predict_slides_fcn(self, plans, imgs=None) -> List[SlideResult]:
+    def predict_slides_fcn(self, plans, imgs=None,
+                           ahead=None) -> List[SlideResult]:
         """Serve a GROUP of same-geometry slides as one batched forward
         (slides as the batch dimension). A group whose slides do not share
         one :meth:`fcn_group_key` (one slide, mixed dims, cls mode, another
         scan level, oversize) falls back to :meth:`predict_slide_fcn` per
         slide. ``imgs`` optionally supplies staged images, index-aligned
-        with ``plans``."""
+        with ``plans``.
+
+        ``ahead`` = (next plans, their staged images) runs the route one
+        group deep, in range ``engine.serve``: the group is launched
+        (:meth:`_launch`) unless an earlier call launched it as its
+        ``ahead``; then the next group is launched behind it (range
+        ``engine.ahead``; only a group that shares one forward); then the
+        host waits for this group alone and turns its heat to f32
+        (:meth:`_collect`) while the card runs the next. Between the
+        calls the next group is pending on the engine. A pending group
+        whose plans are not this call's (by identity) is waited for and
+        dropped first (:meth:`drop_ahead`). Without ``ahead`` the call
+        returns with nothing pending."""
+        global AHEAD
         plans = list(plans)
-        keys = {self.fcn_group_key(p) for p in plans}
-        if len(plans) == 1 or None in keys or len(keys) != 1:
+        if self._ahead is not None and not _same_plans(self._ahead.plans,
+                                                       plans):
+            self.drop_ahead()
+        mine, self._ahead = self._ahead, None
+        if not self._one_forward(plans):
             return [self.predict_slide_fcn(
                 p, img=None if imgs is None else imgs[k])
                 for k, p in enumerate(plans)]
-        return self._serve(plans, imgs)
+        with record_function("engine.serve"):
+            if mine is None:
+                mine = self._launch(plans, imgs)
+            if ahead is not None and self._one_forward(ahead[0]):
+                with record_function("engine.ahead"):
+                    self._ahead = self._launch(*ahead)
+                AHEAD += 1
+            return self._collect(mine)
 
     # ---- sharded routes (every rank calls, every rank returns) ----
 
@@ -957,7 +1059,6 @@ class DenseInferenceEngine:
                 "slide-parallel serving needs k*n_dev slides of identical "
                 "padded geometry on the planar fast path; use "
                 "predict_slides_fcn / predict_slide_fcn otherwise")
-        t0 = time.time()
         per = len(plans) // n_dev
         mine = range(r * per, (r + 1) * per)
         staged = None
@@ -965,10 +1066,7 @@ class DenseInferenceEngine:
             staged = [self._stage(imgs[k]) if isinstance(imgs[k], np.ndarray)
                       else imgs[k] for k in mine]
         own = [plans[k] for k in mine]
-        labels, heat = self._run_fused(*self._inputs(own, staged))
-        res = self._results(own, self._host_crops(own, labels),
-                            self._host_crops(own, heat),
-                            (time.time() - t0) / len(plans))
+        res = self._collect(self._launch(own, staged))
         every = comm.gather_objects(res, mesh_group(mesh, axis))
         return [x for part in every for x in part]
 

@@ -71,13 +71,22 @@ def _pipelined_results(engine: DenseInferenceEngine,
       prefetched (``predict_slide_streamed``).
     - ``fcn``: groups of up to ``engine.slides_in_flight`` consecutive
       slides with one ``engine.fcn_group_key`` run as one batched forward
-      (``predict_slides_fcn``); a slide without one is a group of its own
-      (``predict_slide_fcn``). One-ahead staging on a worker thread
-      overlaps the next group's host read and upload with this group's
-      compute; ``stage_slide_fcn`` stages nothing for a slide the fused
-      route does not take (over ``fcn_fast_max_px``: the banded route,
-      one band at a time; cls mode, ``scan_resize`` ≠ 1). The wait on a
-      group's staging is range ``pipeline.stage_wait``.
+      (``predict_slides_fcn``, :func:`_fcn_groups`); a slide without one
+      is a group of its own (``predict_slide_fcn``). The route runs one
+      group deep: a group of two or more slides is called with the next
+      group as its ``ahead`` when that one shares a forward too, so the
+      engine enqueues group g+1 before the host waits for group g, and
+      group g's copies and heat to f32 run under g+1's forward; group
+      g+1 stays pending on the engine until the next call returns its
+      results. A single-slide group, and a group before one, is served
+      synchronously. A worker thread stages (reads, pads, uploads) two
+      groups ahead of the one being finished, so the next group's images
+      are there when it is launched; ``stage_slide_fcn`` stages nothing
+      for a slide the fused route does not take (over
+      ``fcn_fast_max_px``: the banded route, one band at a time; cls
+      mode, ``scan_resize`` ≠ 1). Each wait on a group's staging is range
+      ``pipeline.stage_wait``. Closing the generator early waits for and
+      drops a pending group (``engine.drop_ahead``).
     - otherwise the grid: slide k+1's level image is staged
       (``stage_slide``) while slide k computes.
 
@@ -114,38 +123,44 @@ def _pipelined_results(engine: DenseInferenceEngine,
             yield name, plan, engine.predict_slide_sharded(plan, mesh)
         return
     if fcn:
-        n_flight = max(1, int(engine.slides_in_flight))
-        groups, cur, cur_key = [], [], None
-        for it in items:
-            key = engine.fcn_group_key(it[1])
-            if cur and (len(cur) == n_flight or key != cur_key
-                        or key is None):
-                groups.append(cur)
-                cur = []
-            cur_key = key
-            cur.append(it)
-        if cur:
-            groups.append(cur)
+        groups = _fcn_groups(engine, items)
 
         def stage_group(g):
             return [engine.stage_slide_fcn(p) for _, p in g]
 
+        def staged_images(gi):
+            with record_function("pipeline.stage_wait"):
+                imgs = staged[gi].result()
+            staged[gi] = None
+            return imgs
+
         with ThreadPoolExecutor(max_workers=1) as pool:
-            staged = pool.submit(stage_group, groups[0]) if groups else None
-            for gi, g in enumerate(groups):
-                nxt = (pool.submit(stage_group, groups[gi + 1])
-                       if gi + 1 < len(groups) else None)
-                with record_function("pipeline.stage_wait"):
-                    imgs = staged.result()
-                if len(g) == 1:
-                    res_list = [engine.predict_slide_fcn(g[0][1],
-                                                         img=imgs[0])]
-                else:
-                    res_list = engine.predict_slides_fcn(
-                        [p for _, p in g], imgs=imgs)
-                staged = nxt
-                for (name, plan), res in zip(g, res_list):
-                    yield name, plan, res
+            staged = [pool.submit(stage_group, g) for g in groups[:2]]
+            imgs = None
+            try:
+                for gi, g in enumerate(groups):
+                    if gi + 2 < len(groups):
+                        staged.append(pool.submit(stage_group,
+                                                  groups[gi + 2]))
+                    if imgs is None:
+                        imgs = staged_images(gi)
+                    plans = [p for _, p in g]
+                    if len(g) == 1:
+                        res_list = [engine.predict_slide_fcn(plans[0],
+                                                             img=imgs[0])]
+                        imgs = None
+                    else:
+                        nxt = groups[gi + 1] if gi + 1 < len(groups) else []
+                        ahead = (([p for _, p in nxt], staged_images(gi + 1))
+                                 if len(nxt) > 1 else None)
+                        res_list = engine.predict_slides_fcn(
+                            plans, imgs=imgs, ahead=ahead)
+                        # the next group's images, already in its launch
+                        imgs = ahead[1] if ahead else None
+                    for (name, plan), res in zip(g, res_list):
+                        yield name, plan, res
+            finally:
+                engine.drop_ahead()
         return
     with ThreadPoolExecutor(max_workers=1) as pool:
         staged = pool.submit(engine.stage_slide, items[0][1]) \
@@ -156,6 +171,25 @@ def _pipelined_results(engine: DenseInferenceEngine,
             res = engine.predict_slide(plan, level_img=staged.result())
             staged = nxt
             yield name, plan, res
+
+
+def _fcn_groups(engine: DenseInferenceEngine, items) -> List[List]:
+    """``items`` ((name, plan) in order) cut into the FCN branch's groups:
+    runs of up to ``engine.slides_in_flight`` consecutive slides with one
+    ``engine.fcn_group_key``; a slide whose key is None is a group of its
+    own."""
+    n_flight = max(1, int(engine.slides_in_flight))
+    groups, cur, cur_key = [], [], None
+    for it in items:
+        key = engine.fcn_group_key(it[1])
+        if cur and (len(cur) == n_flight or key != cur_key or key is None):
+            groups.append(cur)
+            cur = []
+        cur_key = key
+        cur.append(it)
+    if cur:
+        groups.append(cur)
+    return groups
 
 
 def predict_wsis(engine: DenseInferenceEngine, collection: SlideCollection,

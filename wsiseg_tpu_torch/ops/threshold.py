@@ -11,6 +11,7 @@ its heat quantiser; ``pred_to_mask`` draws class perimeters with
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -18,16 +19,27 @@ import torch
 from wsiseg_tpu_torch.ops.morphology import bwperim, dilate
 
 
+@functools.lru_cache(maxsize=None)
+def _floors(class_probs: Tuple[float, ...], dtype: torch.dtype,
+            device: torch.device) -> torch.Tensor:
+    """The class floors as a tensor on ``device``, made once: their copy
+    from the host's pageable memory would block the host at every call."""
+    return torch.tensor(class_probs, dtype=dtype, device=device)
+
+
 def gate(x: torch.Tensor, class_probs: Sequence[float],
          dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The engine's one decision per pixel: softmax of ``x`` over ``dim``
     in its dtype, each class below its floor zeroed, argmax. Returns
-    (labels u8, probs); ``labels`` lacks ``dim``."""
+    (labels u8, probs); ``labels`` lacks ``dim``. It never blocks the
+    host: the floors are made on the device once per (floors, dtype,
+    device) and kept, where a fresh copy from pageable memory would wait
+    for the card at every call, and with it the fused route's launch."""
     probs = torch.softmax(x, dim=dim)
     shape = [1] * x.dim()
     shape[dim] = -1
-    floors = torch.tensor(class_probs, dtype=probs.dtype,
-                          device=probs.device).view(shape)
+    floors = _floors(tuple(class_probs), probs.dtype,
+                     probs.device).view(shape)
     probs = torch.where(probs < floors, torch.zeros_like(probs), probs)
     return torch.argmax(probs, dim=dim).to(torch.uint8), probs
 
