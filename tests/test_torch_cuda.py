@@ -707,9 +707,77 @@ def test_mit_engine_gpu_matches_cpu(cuda_device):
     assert res.labels.shape == (192, 256)
 
 
+@pytest.mark.parametrize("windows,heads,shift", [(86, 4, 6), (88, 32, 0),
+                                                 (352, 16, 6)])
+def test_window_attention_matches_math(cuda_device, windows, heads, shift):
+    """``window_attention`` on the card (bf16, ``WINDOW_BACKEND``) against
+    SDPA's math backend in float32 on the same bf16 operands, bias and
+    masks, at Swin-B's window shapes (144 tokens, d = 32; a stage-1 window
+    row, stage 4 and stage 3 of a 3072×4096 slide): within 2^-7·max|v|,
+    as ``sr_attention``; one launch a call, two on a shifted block."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from wsiseg_tpu_torch.models import swin
+    from wsiseg_tpu_torch.ops import attention
+    g = torch.Generator(device=cuda_device).manual_seed(windows)
+    q, k, v = (torch.randn(2, windows, heads, 144, 32, device=cuda_device,
+                           generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    bias = (3 * torch.randn(heads, 144, 144, device=cuda_device,
+                            generator=g)).to(torch.bfloat16)
+    nh = 8 if windows == 352 else 1
+    hp, wp = 12 * nh, 12 * (windows // nh)
+    masked = (swin.shift_masks(hp, wp, 12, 6, str(cuda_device)) if shift
+              else None)
+    before = attention.WINDOW_LAUNCHES
+    got = attention.window_attention(q, k, v, bias, masked)
+    assert attention.WINDOW_LAUNCHES == before + (2 if shift else 1)
+    full = torch.zeros(windows, 144, 144, device=cuda_device)
+    if shift:
+        full[masked[0]] = masked[1]
+    mask = (bias.float()[None, None] + full[None, :, None]).to(
+        torch.bfloat16).float()
+    with sdpa_kernel([SDPBackend.MATH]):
+        want = torch.nn.functional.scaled_dot_product_attention(
+            *(t.float().flatten(0, 1) for t in (q, k, v)),
+            attn_mask=mask.expand(2, -1, -1, -1, -1).flatten(0, 1))
+    torch.testing.assert_close(got.float().flatten(0, 1), want, rtol=0,
+                               atol=TOL * float(v.float().abs().max()))
+
+
+def test_swin_engine_gpu_matches_cpu(cuda_device):
+    """swin_b UPerNet through the fused route on the card (bf16 windows,
+    folded UPerNet, no stem kernel) against the same route in float32 on
+    the CPU, on a 192×256 slide: logits within 1/16 of their spread (the
+    CPU test's bf16 bound), and 36 window-attention launches a forward."""
+    from wsiseg_tpu_torch.models.infer_fast import prepare_fast, \
+        segment_from_image
+    from wsiseg_tpu_torch.ops import attention
+    cfg = default_config(tile_w=64, tile_h=64, tile_stride_w=32,
+                         tile_stride_h=32, model_name="UPerNet",
+                         arch_encoder="swin_b")
+    slide = SyntheticSlide(width=4096, height=3072, num_levels=3, seed=11)
+    plan = plan_slide("syn", slide, cfg)
+    model = init_ynet(cfg, torch.Generator().manual_seed(0))
+    img = torch.from_numpy(np.ascontiguousarray(slide.read_level(2)))[None]
+    want = segment_from_image(prepare_fast(model, MEAN, STD, torch.float32),
+                              img, planar_head=False)
+    eng = DenseInferenceEngine(model, cfg, device=cuda_device)
+    launches, stems = attention.WINDOW_LAUNCHES, stem.LAUNCHES
+    got = segment_from_image(eng.fast, img.to(cuda_device),
+                             planar_head=False).cpu()
+    assert attention.WINDOW_LAUNCHES == launches + 36
+    assert stem.LAUNCHES == stems
+    spread = float(want.max() - want.min())
+    assert float((got - want).abs().max()) < spread / 16
+    res = eng.predict_slide_fcn(plan)
+    assert res.labels.shape == (192, 256)
+
+
 @pytest.mark.parametrize("model_name,arch", [("Unet", "resnet18"),
                                              ("FPN", "resnet50"),
-                                             ("FPN", "mit_b5")])
+                                             ("FPN", "mit_b5"),
+                                             ("UPerNet", "swin_b")])
 def test_fused_launch_never_blocks_the_host(cuda_device, model_name, arch):
     """A group of two 192×256 slides launched through the fused route
     (``_launch``: masks up from pinned memory, forward, postprocess,

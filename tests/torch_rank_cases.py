@@ -633,3 +633,77 @@ def sharded_inference_cases(device, state_dict=None, out_dir: str = "",
             "--val_save_pth", cli_dir, "--wsi_mask_pth", "", "--tile_w",
             "64", "--tile_h", "64"])
     return out
+
+
+# ---- data-parallel training over each rank's device cache ----
+
+
+def _cache_patches(n: int = 16, tile: int = 32, seed: int = 5) -> Dict:
+    """``n`` u8 host patches with hybrid labels, in ``PatchDataset``'s
+    batch form (every third row cls, reg, seg)."""
+    rs = np.random.RandomState(seed)
+    task = np.arange(n) % 3
+    return {"image": rs.randint(0, 256, (n, tile, tile, 3)).astype(np.uint8),
+            "seg_label": rs.randint(0, 4, (n, tile, tile)).astype(np.int32),
+            "cls_label": np.where(task == 0, rs.randint(0, 4, n),
+                                  -1).astype(np.int32),
+            "reg_label": np.where(task == 1, rs.rand(n),
+                                  0.0).astype(np.float32),
+            "is_cls": (task == 0).astype(np.float32),
+            "is_reg": (task == 1).astype(np.float32),
+            "is_seg": (task == 2).astype(np.float32)}
+
+
+def cached_dp_cases(device) -> Dict[str, object]:
+    """``train --mesh N --device_cache``'s wiring
+    (``device_cache.cached_training`` over this rank's rows of each host
+    batch, ``cache_rows``) against the single-device cached step on the
+    global batch, f64 sgd with the colour jitter (each rank drawing the
+    global batch's factors): parameters, BatchNorm statistics and
+    metrics, the largest relative gap over the ranks; the all-reduces
+    the step made (``comm.ALLREDUCE_CALLS``), and those of the
+    single-device step (none)."""
+    from wsiseg_tpu_torch.optim import build_optimizer
+    from wsiseg_tpu_torch.train.device_cache import (
+        DeviceEpochCache, cache_rows, cached_training,
+        make_cached_hybrid_train_step)
+    from wsiseg_tpu_torch.train.state import TrainState
+    mesh = rank_mesh(device)
+    n, r = mesh_size(mesh), mesh_rank(mesh)
+    b = 2 * n
+    cfg = train_cfg(batch_size=b)
+    data = _cache_patches(n=4 * b)
+    batches = [{k: v[i:i + b] for k, v in data.items()}
+               for i in range(0, 4 * b, b)]
+    cut = cache_rows(cfg, mesh)
+    model = ynet_f64(cfg, device)
+    st = TrainState(model, build_optimizer(cfg, model.parameters()))
+    cache, step, make_batches = cached_training(
+        ({k: v[cut(b)] for k, v in bt.items()} for bt in batches), model,
+        cfg, device, mesh, cls_weights=CW, seg_weights=SW)
+    local = next(iter(make_batches(rows=None)))["idx"]
+    calls = comm.ALLREDUCE_CALLS
+    with comm.data_parallel(mesh):
+        got = step(st, {"idx": torch.as_tensor(local, device=device)},
+                   torch.Generator(device).manual_seed(11))
+    calls = comm.ALLREDUCE_CALLS - calls
+
+    # the global batch: each rank's local rows at its batch_rows
+    m = b // n
+    rows = np.concatenate([(local // m) * b + q * m + local % m
+                           for q in range(n)])
+    full = DeviceEpochCache.build(batches, cfg, device)
+    ref = ynet_f64(cfg, device)
+    ref_st = TrainState(ref, build_optimizer(cfg, ref.parameters()))
+    single = comm.ALLREDUCE_CALLS
+    want = make_cached_hybrid_train_step(
+        ref, cfg, cls_weights=CW, seg_weights=SW)(
+            ref_st, full.arrays, torch.as_tensor(rows, device=device),
+            torch.Generator(device).manual_seed(11))
+    single = comm.ALLREDUCE_CALLS - single
+    gap = max([state_diff(ref, model)]
+              + [rel_diff(got[k], want[k]) for k in want])
+    return {"cached_dp": max_over_ranks(gap, device),
+            "cache_rows": int(max_over_ranks(cache.n, device)),
+            "local_batch": len(local), "rank": r,
+            "allreduce_calls": calls, "single_calls": single}

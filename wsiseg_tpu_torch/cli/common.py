@@ -147,7 +147,7 @@ def mesh_ranks(spec: str, device="cuda") -> int:
     spec = (spec or "").strip().lower()
     if spec in ("", "none", "0", "1"):
         return 1
-    grid = _grid(spec)
+    grid = mesh_grid(spec)
     if grid:
         return grid[0] * grid[1]
     if spec == "all":
@@ -158,7 +158,7 @@ def mesh_ranks(spec: str, device="cuda") -> int:
     return int(spec)
 
 
-def _grid(spec: str) -> Optional[Tuple[int, int]]:
+def mesh_grid(spec: str) -> Optional[Tuple[int, int]]:
     """(N, M) of an ``NxM`` ``--mesh`` value; None for any other."""
     spec = (spec or "").strip().lower()
     return tuple(int(v) for v in spec.split("x")) if "x" in spec else None
@@ -180,7 +180,7 @@ def make_train_mesh(cfg: Config, n: int, device="cuda"):
     ``make_train_mesh`` (``common.py:166-171``); None for one device."""
     if n <= 1:
         return None
-    grid = _grid(cfg.mesh)
+    grid = mesh_grid(cfg.mesh)
     if grid:
         return _mesh_of(cfg, n, device, grid, (cfg.mesh_axes[0], "space"))
     return _mesh_of(cfg, n, device)

@@ -7,7 +7,8 @@ inference over ``raw_val_pth`` (reference train.py:108-109 →
 ``predict_wsis``), and checkpoints on the ``save_models`` cadence.
 ``--device_cache`` copies the u8 training set to the card once and
 gathers each step's rows there
-(:mod:`~wsiseg_tpu_torch.train.device_cache`).
+(:mod:`~wsiseg_tpu_torch.train.device_cache`); with ``--mesh N`` each
+rank caches its own rows.
 
 Runs on the CUDA device unless ``--device cpu`` asks for the CPU; without
 a CUDA device the default raises ``RuntimeError``. ``--mesh N`` trains
@@ -23,7 +24,7 @@ import os
 from typing import Optional, Sequence
 
 from wsiseg_tpu_torch.cli.common import (make_preprocess, make_train_mesh,
-                                         mesh_ranks, needs_ranks,
+                                         mesh_grid, mesh_ranks, needs_ranks,
                                          parse_train_flags, setup_ynet,
                                          spawn_ranks)
 from wsiseg_tpu_torch.config import Config, parse_args
@@ -57,15 +58,17 @@ def wsi_validation(cfg: Config, model, device):
 
 
 def train(cfg: Config, device="cuda") -> Trainer:
-    if cfg.device_cache and cfg.mesh:
-        raise ValueError("--device_cache is a single-device mode "
-                         "(the cache lives on one card); drop --mesh")
+    if cfg.device_cache and mesh_grid(cfg.mesh):
+        raise ValueError("--device_cache caches each rank's rows of a "
+                         "data-parallel mesh (--mesh N); a space axis "
+                         "(--mesh NxM) splits the tiles: drop one")
     n = mesh_ranks(cfg.mesh, device)
     if needs_ranks(n):
         return spawn_ranks(n, device, train, cfg=cfg, device=device)
     state, start_epoch = setup_ynet(cfg, device)
     model = state.model
     dev = next(model.parameters()).device
+    mesh = make_train_mesh(cfg, n, device)
     wc, ws = cls_weights(cfg.train_image_pth, cfg)
     step = make_hybrid_train_step(model, cfg, cls_weights=wc,
                                   seg_weights=ws)
@@ -74,28 +77,17 @@ def train(cfg: Config, device="cuda") -> Trainer:
     make_batches = lambda rows=None: ds.batches(  # noqa: E731
         drop_remainder=True, rows=rows)
     if cfg.device_cache:
-        from wsiseg_tpu_torch.train.device_cache import (
-            DeviceEpochCache, make_cached_hybrid_train_step)
-        cache = DeviceEpochCache.build(
-            ds.batches(drop_remainder=True), cfg, dev,
-            max_bytes=int(cfg.device_cache_gb * 1e9), log=print)
-        cstep = make_cached_hybrid_train_step(model, cfg, cls_weights=wc,
-                                              seg_weights=ws)
+        from wsiseg_tpu_torch.train.device_cache import (cache_rows,
+                                                         cached_training)
+        _, step, make_batches = cached_training(
+            ds.batches(drop_remainder=True, rows=cache_rows(cfg, mesh)),
+            model, cfg, dev, mesh, max_bytes=int(cfg.device_cache_gb * 1e9),
+            log=print, cls_weights=wc, seg_weights=ws)
         preprocess = None        # normalize + jitter run after the gather
-        epochs = iter(range(10 ** 9))
-
-        def step(st, b, g):
-            return cstep(st, cache.arrays, b["idx"], g)
-
-        def make_batches():
-            ep = next(epochs)
-            return ({"idx": ix} for ix in cache.index_batches(
-                cfg.batch_size, seed=cfg.seed, epoch=ep))
 
     validate_fn = (wsi_validation(cfg, model, dev) if cfg.raw_val_pth
                    else None)
-    trainer = Trainer(cfg, state, step,
-                      mesh=make_train_mesh(cfg, n, device),
+    trainer = Trainer(cfg, state, step, mesh=mesh,
                       make_batches=make_batches,
                       preprocess_batch=preprocess, validate_fn=validate_fn)
     trainer.run(start_epoch=start_epoch)

@@ -25,9 +25,9 @@ KNOWN_LOSSES = (
 )
 KNOWN_OPTIMIZERS = ("adam", "sgd", "adabound")
 # smp-style decoder architectures (reference myargs.py:9-10).
-KNOWN_MODELS = ("Unet", "FPN", "PSPNet", "Linknet")
+KNOWN_MODELS = ("Unet", "FPN", "PSPNet", "Linknet", "UPerNet")
 KNOWN_ENCODERS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
-                  "mit_b5")
+                  "mit_b5", "swin_b")
 
 
 @dataclass

@@ -118,7 +118,8 @@ FCN_GROUP_SLIDES = 4
 AHEAD = 0
 #: Whole-image dispatch cap in padded pixels per slide for the ResNet
 #: families: 64e9 / (538 B/px · 4 slides) = 29.74 M px, 2.4× the bench
-#: slide (4096×3072); mit_b5's is 53.87 M px (297 B/px). Larger slides
+#: slide (4096×3072); mit_b5's is 53.87 M px (297 B/px), swin_b's 26.32 M
+#: px (608 B/px). Larger slides
 #: take the banded route.
 FCN_FAST_MAX_PX = int(FCN_DEVICE_BUDGET
                       // (FCN_PEAK_BYTES_PER_PX * FCN_GROUP_SLIDES))
@@ -454,11 +455,14 @@ class DenseInferenceEngine:
     def _refuse_chunks(self, route: str) -> None:
         """Raise ``ValueError`` where ``route`` would cut a slide into
         chunks or stripes for a model whose every output depends on the
-        whole image (MiT's attention): no halo makes such a chunk exact."""
+        whole image (MiT's global attention; Swin's windows and edge
+        padding over the whole padded image): no halo makes such a chunk
+        exact."""
         if not self.fast.chunk_exact:
             raise ValueError(
                 f"{route} cuts the slide into halo-padded chunks, which no "
-                f"halo makes exact for {self.model.arch}'s global attention; "
+                f"halo makes exact for {self.model.arch}, whose every output "
+                f"depends on the whole padded image; "
                 f"{self.model.arch} takes the fused whole-image route only "
                 f"(seg mode, scan_resize 1, within fcn_fast_max_px)")
 

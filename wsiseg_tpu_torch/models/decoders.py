@@ -1,5 +1,6 @@
 """FPN / PSPNet / Linknet decoders (eval forwards) and the resize helpers
-they share — counterpart of ``wsiseg_tpu/models/decoders.py``.
+they share — counterpart of ``wsiseg_tpu/models/decoders.py`` — and
+UPerNet's head, which the JAX package lacks (:class:`UPerNetDecoder`).
 
 Each decoder consumes the deepest-first pyramid [c5, c4, c3, c2, c1] and
 returns the activation its segmentation head reads; the head (and the
@@ -7,7 +8,10 @@ final bilinear upsample of FPN and PSPNet) sits on the Y-Net as
 ``segmentation_head``, where smp keeps it (:mod:`.ynet`). Parameter names
 follow ``wsiseg_tpu.models.torch_import.convert_ynet_state_dict``:
 ``lat{n}``, ``seg{n}.conv{k}.{0,1}``, ``psp{b}.{0,1}``, ``fuse.{0,1}`` and
-``blocks.{i}.conv{1,2,3}.{0,1}``.
+``blocks.{i}.conv{1,2,3}.{0,1}``; UPerNet's are mmsegmentation's
+``UPerHead`` names (``psp_modules.{b}``, ``bottleneck``,
+``lateral_convs.{i}``, ``fpn_convs.{i}``, ``fpn_bottleneck``), each a
+``Sequential(conv, BatchNorm)``.
 
 Resizes follow ``jax.image.resize``, not smp:
 
@@ -268,3 +272,60 @@ class LinknetDecoder(nn.Module):
         for block, skip in zip(self.blocks, skips):
             x = block(x, skip, levels)
         return x
+
+
+def bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """mmsegmentation's ``resize(..., mode="bilinear", align_corners=False)``:
+    ``F.interpolate`` whichever way each axis goes (no antialiasing, unlike
+    :func:`resize_linear` when it downsamples)."""
+    if tuple(x.shape[2:]) == (h, w):
+        return x
+    return F.interpolate(x, size=(h, w), mode="bilinear",
+                         align_corners=False)
+
+
+class UPerNetDecoder(nn.Module):
+    """mmsegmentation's ``UPerHead`` up to ``conv_seg`` (Xiao et al., ECCV
+    2018, arXiv:1807.10221; as the Swin paper runs it): a pyramid pooling
+    module on c5 (``AdaptiveAvgPool2d`` to 1, 2, 3 and 6 bins, a 1×1 conv
+    + BN + ReLU each, bilinear back; never :func:`psp_pool`, whose
+    antialiased resize differs where the bins do not divide c5), their
+    concat with c5 through a 3×3 ``bottleneck``; 1×1 laterals on c2-c4 and
+    top-down bilinear adds; 3×3 FPN convs on c2-c4; all four levels resized
+    to 1/4 and concatenated (4·512 channels) through the 3×3
+    ``fpn_bottleneck``. Every conv is conv + BN + ReLU with 512 output
+    channels. Returns the (B, 512, H/4, W/4) map; the head's 1×1 conv and
+    ×4 bilinear follow on the Y-Net. The training-only auxiliary FCN head
+    is left out, in training as in inference."""
+
+    out_level = 2
+
+    def __init__(self, encoder_channels: Sequence[int], channels: int = 512,
+                 bins: Sequence[int] = PSP_BINS):
+        super().__init__()
+        c5 = encoder_channels[0]
+        self.bins = tuple(bins)
+        self.psp_modules = nn.ModuleList(conv_bn(c5, channels, 1)
+                                         for _ in self.bins)
+        self.bottleneck = conv_bn(c5 + len(self.bins) * channels, channels, 3)
+        ins = tuple(encoder_channels[1:4])[::-1]       # c2, c3, c4
+        self.lateral_convs = nn.ModuleList(conv_bn(c, channels, 1)
+                                           for c in ins)
+        self.fpn_convs = nn.ModuleList(conv_bn(channels, channels, 3)
+                                       for _ in ins)
+        self.fpn_bottleneck = conv_bn((len(ins) + 1) * channels, channels, 3)
+
+    def forward(self, features: List[torch.Tensor]) -> torch.Tensor:
+        c5 = features[0]
+        h, w = c5.shape[2:]
+        psp = [c5] + [bilinear(F.relu(m(F.adaptive_avg_pool2d(c5, n))), h, w)
+                      for m, n in zip(self.psp_modules, self.bins)]
+        lat = [F.relu(m(c)) for m, c in zip(self.lateral_convs,
+                                           features[1:4][::-1])]
+        lat.append(F.relu(self.bottleneck(torch.cat(psp, dim=1))))
+        for i in range(len(lat) - 1, 0, -1):
+            lat[i - 1] = lat[i - 1] + bilinear(lat[i], *lat[i - 1].shape[2:])
+        outs = [F.relu(m(x)) for m, x in zip(self.fpn_convs, lat)] + [lat[-1]]
+        h2, w2 = outs[0].shape[2:]
+        outs = [outs[0]] + [bilinear(x, h2, w2) for x in outs[1:]]
+        return F.relu(self.fpn_bottleneck(torch.cat(outs, dim=1)))

@@ -22,7 +22,8 @@ engine is built. Every conv of :func:`decode_cells` is a plain
 :func:`decode_linknet_cells` is Linknet's counterpart of
 :func:`decode_cells` (same ``S2D_HEAD_F`` head planes);
 :func:`decode_native` runs FPN and PSPNet to native full-resolution
-logits (JAX ``infer_fast._apply_native_decoder``).
+logits (JAX ``infer_fast._apply_native_decoder``), and UPerNet (no JAX
+counterpart) on its folded weights.
 
 :func:`decode_fast` (JAX ``decode_fast``) is the batched-tile Unet
 decoder of the grid, cls and chunked FCN routes: blocks 0-3 native,
@@ -44,8 +45,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from wsiseg_tpu_torch.models.decoders import (FPN_UPSAMPLES, psp_pool,
-                                              resize_linear, resize_nearest)
+from wsiseg_tpu_torch.models.decoders import (FPN_UPSAMPLES, bilinear,
+                                              psp_pool, resize_linear,
+                                              resize_nearest)
 from wsiseg_tpu_torch.ops.conv9 import conv9, conv_chain, prep_layer
 
 # s2d factor of the head logits that decode_cells(s2d_head=True) emits —
@@ -400,13 +402,20 @@ def unet_segment_fast(net, prep: Dict[str, object], x: torch.Tensor,
 
 @torch.no_grad()
 def prepare_native(model, dtype: torch.dtype) -> Dict[str, object]:
-    """Weights of :func:`decode_native` for an FPN or PSPNet Y-Net, done
-    once: OIHW kernels in ``dtype``, f32 BN affines and biases."""
+    """Weights of :func:`decode_native` for an FPN, PSPNet or UPerNet
+    Y-Net, done once: OIHW kernels in ``dtype``, f32 BN affines and biases
+    (UPerNet: :func:`_folded` layers)."""
     dec, head = model.decoder, model.segmentation_head[0]
     prep: Dict[str, object] = {
         "family": model.model_name, "upsample": model.head_upsample,
         "head": (oihw(hwio(head), dtype), _chan(head.bias.detach().float()))}
-    if model.model_name == "FPN":
+    if model.model_name == "UPerNet":
+        prep["bins"] = dec.bins
+        for name in ("psp_modules", "lateral_convs", "fpn_convs"):
+            prep[name] = [_folded(m, dtype) for m in getattr(dec, name)]
+        for name in ("bottleneck", "fpn_bottleneck"):
+            prep[name] = _folded(getattr(dec, name), dtype)
+    elif model.model_name == "FPN":
         for n in (5, 4, 3, 2):
             lat, seg = getattr(dec, f"lat{n}"), getattr(dec, f"seg{n}")
             prep[f"lat{n}"] = (oihw(hwio(lat), dtype),
@@ -455,14 +464,54 @@ def _psp(prep: Dict[str, object], feats: List[torch.Tensor],
     return _cbr(torch.cat(outs, dim=1), prep["fuse"], dtype)
 
 
+def _folded(seq: nn.Sequential, dtype: torch.dtype):
+    """``Sequential(conv, BN)`` → (OIHW kernel × the BN scale, in
+    ``dtype``; the BN shift, in ``dtype``): conv + BN as one conv with
+    bias."""
+    s, t = _bn_affine(seq[1])
+    return ((seq[0].weight.detach().float() * s.view(-1, 1, 1, 1))
+            .to(dtype).contiguous(memory_format=torch.channels_last),
+            t.to(dtype))
+
+
+def _fcr(x: torch.Tensor, layer) -> torch.Tensor:
+    """A :func:`_folded` layer: conv with bias + ReLU in the kernel's
+    dtype (SAME for 3×3, 1×1 unpadded)."""
+    k, b = layer
+    return torch.relu_(F.conv2d(x, k, b, padding=k.shape[-1] // 2))
+
+
+def _uper(prep: Dict[str, object], feats: List[torch.Tensor],
+          dtype: torch.dtype) -> torch.Tensor:
+    """:class:`~.decoders.UPerNetDecoder` on folded weights, every
+    activation in ``dtype``: the pyramid pooling on c5, the laterals and
+    their top-down adds, the FPN convs, the 1/4-resolution concat and the
+    ``fpn_bottleneck``."""
+    c5 = feats[0].to(dtype)
+    h, w = c5.shape[2:]
+    psp = [c5] + [bilinear(_fcr(F.adaptive_avg_pool2d(c5, n), layer), h, w)
+                  for layer, n in zip(prep["psp_modules"], prep["bins"])]
+    lat = [_fcr(c.to(dtype), layer)
+           for layer, c in zip(prep["lateral_convs"], feats[1:4][::-1])]
+    lat.append(_fcr(torch.cat(psp, dim=1), prep["bottleneck"]))
+    for i in range(len(lat) - 1, 0, -1):
+        lat[i - 1] = lat[i - 1].add_(bilinear(lat[i], *lat[i - 1].shape[2:]))
+    outs = [_fcr(x, layer) for layer, x in zip(prep["fpn_convs"], lat)]
+    outs.append(lat[-1])
+    h2, w2 = outs[0].shape[2:]
+    outs = [outs[0]] + [bilinear(x, h2, w2) for x in outs[1:]]
+    del psp, lat
+    return _fcr(torch.cat(outs, dim=1), prep["fpn_bottleneck"])
+
+
 def decode_native(prep: Dict[str, object], feats: List[torch.Tensor],
                   dtype: torch.dtype) -> torch.Tensor:
-    """FPN or PSPNet forward on the whole-image pyramid (JAX
+    """FPN, PSPNet or UPerNet forward on the whole-image pyramid (JAX
     ``infer_fast._apply_native_decoder``, which applies the flax decoder
     in bf16): decoder, 1×1 head, and the bilinear upsample to (B, nc, H,
     W) f32 logits. As there, the head's logits are rounded to ``dtype``
     and resized in ``dtype``."""
-    body = _fpn if prep["family"] == "FPN" else _psp
+    body = {"FPN": _fpn, "PSPNet": _psp, "UPerNet": _uper}[prep["family"]]
     kh, bh = prep["head"]
     y = (conv(body(prep, feats, dtype).to(dtype), kh, padding=0)
          + bh).to(dtype)

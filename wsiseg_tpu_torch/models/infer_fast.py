@@ -14,10 +14,11 @@ counterpart of ``wsiseg_tpu/models/infer_fast.py``
   planes, or FPN/PSPNet (:func:`.fast_decoder.decode_native`, native
   full-resolution logits: ``NATIVE_DECODERS``, laid out as the same
   s2d(4) planes by :func:`decode`);
-- MiT (no JAX counterpart), SegFormer's encoder under FPN: the u8 image
-  normalised in float32 and rounded to the compute dtype, the patch
-  embeddings and stages (:func:`.mit.encode_image`), then the same
-  :func:`.fast_decoder.decode_native` as every FPN; no stem kernel;
+- the transformers (no JAX counterpart): SegFormer's MiT under FPN and
+  Swin under UPerNet. The u8 image normalised in float32 and rounded to
+  the compute dtype, the patch embeddings and stages
+  (:func:`.mit.encode_image`, :func:`.swin.encode_image`), then
+  :func:`.fast_decoder.decode_native`, as every FPN; no stem kernel;
 - fold (``infer_fast.py:229-253``), Unet on BasicBlock encoders only: the
   native stem (:func:`wsiseg_tpu_torch.ops.stem.stem_conv`) emits c1, the
   stages start from its max-pool, and :func:`.fast_decoder.decode_fold`
@@ -55,23 +56,31 @@ from wsiseg_tpu_torch.models.fast_decoder import (S2D_HEAD_F, decode_cells,
                                                   prepare_native,
                                                   space_to_depth)
 from wsiseg_tpu_torch.models.fast_encoder import encode_stages, prepare_encoder
-from wsiseg_tpu_torch.models.mit import MIT_PEAK_BYTES_PER_PX, encode_image, \
-    is_mit, prepare_mit
+from wsiseg_tpu_torch.models import mit, swin
 from wsiseg_tpu_torch.models.resnet import is_bottleneck
 from wsiseg_tpu_torch.ops.stem import fold_from_encoder, pad_value, \
     prepare_stem_cells, stem_conv, stem_pool_conv
 
 #: decoders whose forward emits native (N, nc, H, W) logits; Unet and
 #: Linknet emit s2d(4) head planes
-NATIVE_DECODERS = ("FPN", "PSPNet")
+NATIVE_DECODERS = ("FPN", "PSPNet", "UPerNet")
 #: Peak device bytes per padded pixel of the fused whole-image route, for
 #: the widest ResNet family one card serves: resnet50 Linknet, 6.7607 GB
 #: around ``device_throughput`` at one 3072×4096 slide = 537.3 B/px
 #: (resnet18 Unet 341.1; NVIDIA H100 80GB HBM3, ``chip_smoke.py``, PERF.md
-#: §5). MiT's is :data:`.mit.MIT_PEAK_BYTES_PER_PX`.
+#: §5). MiT's is :data:`.mit.MIT_PEAK_BYTES_PER_PX`, Swin's
+#: :data:`.swin.SWIN_PEAK_BYTES_PER_PX`.
 FCN_PEAK_BYTES_PER_PX = 538
 _PREPARE = {"Unet": prepare_decoder, "Linknet": prepare_linknet,
-            "FPN": prepare_native, "PSPNet": prepare_native}
+            "FPN": prepare_native, "PSPNet": prepare_native,
+            "UPerNet": prepare_native}
+#: the transformer encoders by family: (is_family(arch), prepare,
+#: encode_image, the fused route's peak bytes a padded pixel)
+TRANSFORMERS = {
+    "mit": (mit.is_mit, mit.prepare_mit, mit.encode_image,
+            mit.MIT_PEAK_BYTES_PER_PX),
+    "swin": (swin.is_swin, swin.prepare_swin, swin.encode_image,
+             swin.SWIN_PEAK_BYTES_PER_PX)}
 
 
 def check_fold(model) -> None:
@@ -88,12 +97,13 @@ def check_fold(model) -> None:
 @dataclass
 class FastWeights:
     """Everything the whole-image forward reads, prepared once, and what
-    the engine needs to know of the model. A MiT model (``encoder``
-    "mit") has no stem (``stem_w``, ``stem_b`` and ``pad_rgb`` None),
-    ``enc`` is :func:`.mit.prepare_mit`'s, and its attention sees every
-    pixel of the padded image: its slides are padded only to multiples of
-    32 (``w_align``), and no halo makes a chunk of one exact
-    (``chunk_exact``)."""
+    the engine needs to know of the model. A transformer (``encoder``
+    "mit" or "swin") has no stem (``stem_w``, ``stem_b`` and ``pad_rgb``
+    None), ``enc`` is :func:`.mit.prepare_mit`'s or
+    :func:`.swin.prepare_swin`'s, and its attention sees every pixel of
+    the padded image (MiT's keys; Swin's windows and edge padding): its
+    slides are padded only to multiples of 32 (``w_align``), and no halo
+    makes a chunk of one exact (``chunk_exact``)."""
     stem_w: Optional[torch.Tensor]   # (7, 7, 3, 64), normalize+BN folded
     stem_b: Optional[torch.Tensor]   # (64,) f32
     pad_rgb: Optional[Tuple[int, int, int]]
@@ -103,7 +113,7 @@ class FastWeights:
     family: str = "Unet"          # the model's decoder
     fold: Optional[Dict[str, list]] = None   # decode_fold's layer groups
     stem_cells: Optional[torch.Tensor] = None  # the stem kernel's operand
-    encoder: str = "resnet"       # the encoder's family: "resnet" or "mit"
+    encoder: str = "resnet"       # "resnet", or a key of TRANSFORMERS
     peak_bytes_per_px: int = FCN_PEAK_BYTES_PER_PX  # fused route's B/px
     w_align: int = 256            # padded width's multiple: K1's row blocks
     chunk_exact: bool = True      # a halo makes a chunk of a slide exact
@@ -123,13 +133,14 @@ def prepare_fast(model, mean: Sequence[float], std: Sequence[float],
     encoders only, :func:`check_fold`)."""
     if fold:
         check_fold(model)
-    if is_mit(model.arch):
-        return FastWeights(None, None, None,
-                           prepare_mit(model.encoder, mean, std, dtype),
-                           _PREPARE[model.model_name](model, dtype), dtype,
-                           model.model_name, encoder="mit",
-                           peak_bytes_per_px=MIT_PEAK_BYTES_PER_PX,
-                           w_align=32, chunk_exact=False)
+    for family, (is_family, prepare, _, peak) in TRANSFORMERS.items():
+        if is_family(model.arch):
+            return FastWeights(None, None, None,
+                               prepare(model.encoder, mean, std, dtype),
+                               _PREPARE[model.model_name](model, dtype),
+                               dtype, model.model_name, encoder=family,
+                               peak_bytes_per_px=peak, w_align=32,
+                               chunk_exact=False)
     # the stem runs in bf16 (the kernel's contract) unless an f32 oracle
     # run asks for f32 throughout
     w, b = fold_from_encoder(model.encoder, mean, std,
@@ -148,17 +159,19 @@ def segment_from_image(fw: FastWeights, img_u8: torch.Tensor,
                        planar_head: bool = True,
                        fold: bool = False) -> torch.Tensor:
     """(N, H, W, 3) u8 (H, W multiples of 32) → head logits. Default route:
-    (N, 16·nc, H/4, W/4) s2d(4) planes (``planar_head``; FPN and PSPNet,
-    a MiT model's included, give their f32 logits in this layout), in the
-    compute dtype for Unet and Linknet, else (N, nc, H, W) f32.
+    (N, 16·nc, H/4, W/4) s2d(4) planes (``planar_head``; FPN, PSPNet and
+    UPerNet, a transformer's included, give their f32 logits in this
+    layout), in the compute dtype for Unet and Linknet, else (N, nc, H, W)
+    f32.
     ``fold=True`` (weights from ``prepare_fast(..., fold=True)``): native
     stem, encoder, and :func:`decode_fold` on ``conv9`` per layer (the JAX
     engine's ``use_chain=False``), giving (N, 4·nc, H/2, W/2) s2d(2) f32
     planes (``planar_head``), else (N, nc, H, W) f32. Ranges
-    ``fast.stem`` (not for MiT), ``fast.encode``, ``fast.decode``."""
-    if fw.encoder == "mit":
+    ``fast.stem`` (not for a transformer), ``fast.encode``,
+    ``fast.decode``."""
+    if fw.encoder in TRANSFORMERS:
         with record_function("fast.encode"):
-            feats = encode_image(fw.enc, img_u8)
+            feats = TRANSFORMERS[fw.encoder][2](fw.enc, img_u8)
         with record_function("fast.decode"):
             return decode(fw, feats, None, planar_head)
     if fold:

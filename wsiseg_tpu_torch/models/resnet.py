@@ -23,11 +23,11 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from wsiseg_tpu_torch.models.mit import MIT_SPECS, mit_out_channels
+from wsiseg_tpu_torch.models.swin import SWIN_SPECS, swin_out_channels
 from wsiseg_tpu_torch.parallel import comm, spatial
 from wsiseg_tpu_torch.parallel.spatial import Conv2d
 
@@ -110,7 +110,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
         dims = [d for d in range(x.ndim) if d != 1]
         count = torch.full((1,), x.numel() // c, dtype=dt, device=x.device)
         stats = torch.cat([xf.sum(dims), (xf * xf).sum(dims), count])
-        dist.all_reduce(stats, group=group)
+        comm.all_reduce(stats, group)
         n = stats[-1]
         mean = stats[:c] / n
         var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)
@@ -134,7 +134,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
         g = dy.to(dt)
         local = torch.cat([g.sum(dims), (g * xhat).sum(dims)])
         sums = local.clone()
-        dist.all_reduce(sums, group=ctx.group)
+        comm.all_reduce(sums, ctx.group)
         dx = (g - (sums[:c] / n).view(shape)
               - xhat * (sums[c:] / n).view(shape)) \
             * (invstd * weight.to(dt)).view(shape)
@@ -205,11 +205,13 @@ ENCODER_SPECS = {
 
 
 def check_arch(arch: str) -> None:
-    """Raise ``ValueError`` for an encoder the port lacks (the ResNets and
-    the Mix Transformers of :mod:`.mit`)."""
-    if arch not in ENCODER_SPECS and arch not in MIT_SPECS:
+    """Raise ``ValueError`` for an encoder the port lacks (the ResNets, the
+    Mix Transformers of :mod:`.mit` and the Swin Transformers of
+    :mod:`.swin`)."""
+    known = tuple(ENCODER_SPECS) + tuple(MIT_SPECS) + tuple(SWIN_SPECS)
+    if arch not in known:
         raise ValueError(f"unknown encoder {arch!r}; expected one of "
-                         f"{tuple(ENCODER_SPECS) + tuple(MIT_SPECS)}")
+                         f"{known}")
 
 
 def is_bottleneck(arch: str) -> bool:
@@ -222,6 +224,8 @@ def encoder_out_channels(arch: str) -> Tuple[int, ...]:
     check_arch(arch)
     if arch in MIT_SPECS:
         return mit_out_channels(arch)
+    if arch in SWIN_SPECS:
+        return swin_out_channels(arch)
     e = ENCODER_SPECS[arch][0].expansion
     return (512 * e, 256 * e, 128 * e, 64 * e, 64)
 

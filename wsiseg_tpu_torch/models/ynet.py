@@ -1,16 +1,19 @@
 """Y-Net: shared ResNet encoder + decoder (Unet, Linknet, FPN or PSPNet)
 + classifier/regressor heads — counterpart of ``wsiseg_tpu/models/ynet.py``.
 SegFormer's Mix Transformer encoder (:mod:`.mit`, ``mit_b5``) serves under
-FPN only, as smp pairs them; the JAX package has no counterpart of it.
+FPN only, as smp pairs them, and the Swin Transformer (:mod:`.swin`,
+``swin_b``) under UPerNet only, as the Swin paper pairs them; the JAX
+package has no counterpart of either.
 
 Submodule names are smp's (``encoder``, ``decoder``,
 ``segmentation_head``) plus the reference's monkey-patched heads
 (``classifier``, ``regressor``), so the state_dict uses exactly the keys
 ``wsiseg_tpu.models.torch_import.convert_ynet_state_dict`` reads. The
 head is the flax decoder's ``seg_head``: a 3×3 conv for Unet (16 → nc)
-and Linknet (32 → nc), a 1×1 conv for FPN (128 → nc) and PSPNet
-(512 → nc), whose logits are then resized bilinearly (JAX
-``jax.image.resize`` semantics) by 4 and by 32 to the input size.
+and Linknet (32 → nc), a 1×1 conv for FPN (128 → nc), PSPNet (512 → nc)
+and UPerNet (512 → nc, mmsegmentation's ``conv_seg``), whose logits are
+then resized bilinearly (JAX ``jax.image.resize`` semantics) by 4, 32 and
+4 to the input size.
 
 :meth:`YNet.segment` is the plain eager forward — the CPU oracle the fast
 path (:mod:`.infer_fast`) is held against. :meth:`YNet.encode` and
@@ -31,11 +34,12 @@ from torch import nn
 
 from wsiseg_tpu_torch.config import Config
 from wsiseg_tpu_torch.models.decoders import (FPNDecoder, LinknetDecoder,
-                                              PSPDecoder)
+                                              PSPDecoder, UPerNetDecoder)
 from wsiseg_tpu_torch.models.heads import Classifier, Regressor, at_least_f32
 from wsiseg_tpu_torch.models.mit import MiTEncoder, is_mit
 from wsiseg_tpu_torch.models.resnet import ResNetEncoder, \
     encoder_out_channels
+from wsiseg_tpu_torch.models.swin import SwinEncoder, is_swin
 from wsiseg_tpu_torch.models.unet import UNetDecoder
 from wsiseg_tpu_torch.parallel import spatial
 from wsiseg_tpu_torch.parallel.spatial import Conv2d
@@ -43,7 +47,7 @@ from wsiseg_tpu_torch.parallel.spatial import Conv2d
 #: decoder family → (head input channels, head kernel size, bilinear
 #: upsample of the head's logits)
 HEADS = {"Unet": (16, 3, 1), "Linknet": (32, 3, 1), "FPN": (128, 1, 4),
-         "PSPNet": (512, 1, 32)}
+         "PSPNet": (512, 1, 32), "UPerNet": (512, 1, 4)}
 
 
 class YNet(nn.Module):
@@ -56,15 +60,20 @@ class YNet(nn.Module):
         if is_mit(arch) and model_name != "FPN":
             raise ValueError(f"{arch} serves under FPN only (smp's pairing; "
                              f"it has no stride-2 level), not {model_name}")
+        if is_swin(arch) != (model_name == "UPerNet"):
+            raise ValueError(f"swin_b serves under UPerNet and UPerNet on "
+                             f"swin_b only (the Swin paper's pairing), not "
+                             f"{model_name} on {arch}")
         self.arch = arch
         self.model_name = model_name
         self.num_classes = num_classes
         enc_ch = encoder_out_channels(arch)
-        self.encoder = MiTEncoder(arch) if is_mit(arch) else \
-            ResNetEncoder(arch)
+        self.encoder = (MiTEncoder(arch) if is_mit(arch) else
+                        SwinEncoder(arch) if is_swin(arch) else
+                        ResNetEncoder(arch))
         self.decoder = {"Unet": UNetDecoder, "Linknet": LinknetDecoder,
-                        "FPN": FPNDecoder, "PSPNet": PSPDecoder}[model_name](
-                            enc_ch)
+                        "FPN": FPNDecoder, "PSPNet": PSPDecoder,
+                        "UPerNet": UPerNetDecoder}[model_name](enc_ch)
         cin, k, self.head_upsample = HEADS[model_name]
         self.segmentation_head = nn.Sequential(
             Conv2d(cin, num_classes, k, 1, k // 2))
@@ -145,7 +154,7 @@ def compute_copy(model: YNet, dtype: torch.dtype) -> YNet:
     grid path runs the flax Y-Net in ``cfg.compute_dtype``: conv and dense
     weights in ``dtype`` (each conv's output rounded to ``dtype``, as
     flax's), each BatchNorm a :class:`FlaxBatchNorm`, conv weights in
-    ``channels_last``; a MiT encoder's LayerNorms in ``dtype`` too (their
+    ``channels_last``; a MiT or Swin encoder's LayerNorms in ``dtype`` too (their
     statistics are float32 whatever the operands). Feed it inputs in
     ``dtype``."""
     m = copy.deepcopy(model)

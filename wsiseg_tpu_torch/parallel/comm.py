@@ -30,6 +30,13 @@ of a zero-filled ``(world, …)`` slot buffer: that one code path runs on
 NCCL, on gloo over CPU tensors and on gloo over CUDA tensors (gloo has no
 CUDA ``all_gather`` or ``send``/``recv``). The halos it carries are a
 stripe or less, so the world-size factor in bytes does not matter yet.
+
+``ALLREDUCE_CALLS`` and ``ALLREDUCE_BYTES`` count every all-reduce these
+functions make (forward and backward of :func:`global_sum`, the slot
+buffers, the gradients) and the bytes of each rank's buffer, since import
+(or since a caller reset them to 0). The gradient all-reduce runs in
+range ``comm.grads``. A single device makes none: nothing here runs
+without a group of more than one rank.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from typing import Iterable
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 _DATA_GROUP: contextvars.ContextVar = contextvars.ContextVar(
     "wsiseg_data_group", default=None)
@@ -47,6 +55,20 @@ _SPACE: contextvars.ContextVar = contextvars.ContextVar(
     "wsiseg_space", default=None)
 _STRIPED: contextvars.ContextVar = contextvars.ContextVar(
     "wsiseg_striped", default=True)
+
+#: all-reduces made since import (or since a caller reset it to 0)
+ALLREDUCE_CALLS = 0
+#: bytes of each rank's buffer in those all-reduces
+ALLREDUCE_BYTES = 0
+
+
+def all_reduce(t: torch.Tensor, group) -> None:
+    """``dist.all_reduce`` (sum) of ``t`` in place over ``group``, counted
+    in ``ALLREDUCE_CALLS`` and ``ALLREDUCE_BYTES``."""
+    global ALLREDUCE_CALLS, ALLREDUCE_BYTES
+    ALLREDUCE_CALLS += 1
+    ALLREDUCE_BYTES += t.numel() * t.element_size()
+    dist.all_reduce(t, group=group)
 
 
 def as_group(mesh_or_group):
@@ -152,13 +174,13 @@ class _AllReduceSum(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         y = x.contiguous().clone()
-        dist.all_reduce(y, group=group)
+        all_reduce(y, group)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        all_reduce(g, ctx.group)
         return g, None
 
 
@@ -188,7 +210,7 @@ def _slots(t: torch.Tensor, g) -> torch.Tensor:
     m = raw.numel()
     buf = torch.zeros((n, m + (-m) % 4), dtype=torch.uint8, device=t.device)
     buf[r, :m] = raw
-    dist.all_reduce(buf.view(torch.int32), group=g)
+    all_reduce(buf.view(torch.int32), g)
     return buf[:, :m].contiguous().view(t.dtype).reshape((n,) + t.shape)
 
 
@@ -243,7 +265,8 @@ def _flat_apply(tensors: Iterable[torch.Tensor], op) -> None:
 def all_reduce_grads(params: Iterable[torch.nn.Parameter],
                      group=None) -> None:
     """Each ``.grad`` all-reduced and divided by the world size: the
-    global gradient of the global loss (module docstring)."""
+    global gradient of the global loss (module docstring); in range
+    ``comm.grads``."""
     g = _resolve(group)
     if g is None:
         return
@@ -251,10 +274,11 @@ def all_reduce_grads(params: Iterable[torch.nn.Parameter],
     grads = [p.grad for p in params if p.grad is not None]
 
     def op(flat):
-        dist.all_reduce(flat, group=g)
+        all_reduce(flat, g)
         flat.div_(n)
 
-    _flat_apply(grads, op)
+    with record_function("comm.grads"):
+        _flat_apply(grads, op)
 
 
 def broadcast_tensors(tensors: Iterable[torch.Tensor], group=None,

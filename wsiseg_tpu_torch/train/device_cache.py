@@ -12,11 +12,20 @@ the gather, as the host-fed path does it
 :meth:`DeviceEpochCache.index_batches` shuffles with the same numpy
 permutation as JAX's, and the cached step given a host batch's rows
 equals the host-fed step on that batch.
+
+Under a data-parallel mesh (``train --mesh N --device_cache``,
+:func:`cached_training`) each rank caches only its rows of every host
+batch (``parallel.mesh.batch_rows``), and each epoch every rank shuffles
+its own rows with the epoch's permutation (the same on every rank): the
+global batch of a step holds rank r's local batch at the rows
+``batch_rows`` gives rank r, and each rank draws that global batch's
+jitter and takes its rows' factors, as the host-fed mesh path does.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Iterator, Optional
+import itertools
+from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -95,13 +104,15 @@ class DeviceEpochCache:
 
 def gather_batch(arrays: Dict[str, torch.Tensor], idx: torch.Tensor,
                  cfg: Config, generator: Optional[torch.Generator] = None,
-                 train: bool = True) -> Dict[str, torch.Tensor]:
+                 train: bool = True, rows=None) -> Dict[str, torch.Tensor]:
     """The batch rows ``idx`` in the host-fed batch's form: normalized
-    float images (jittered with ``generator`` when ``train``), int64
+    float images (jittered with ``generator`` when ``train``; ``rows`` =
+    (n, index) marks them as rows ``index`` of an n-row global batch,
+    :func:`~wsiseg_tpu_torch.data.patches.normalize_batch_images`), int64
     label maps."""
     b = {k: v.index_select(0, idx) for k, v in arrays.items()}
     b["image"] = normalize_batch_images(b["image"], cfg, generator,
-                                        train=train)
+                                        train=train, rows=rows)
     for k in ("seg_label", "cls_label"):
         if k in b:
             b[k] = b[k].long()
@@ -110,15 +121,64 @@ def gather_batch(arrays: Dict[str, torch.Tensor], idx: torch.Tensor,
 
 def make_cached_hybrid_train_step(model, cfg: Config, **step_kwargs):
     """Cached twin of ``steps.make_hybrid_train_step``: the returned
-    ``step(state, arrays, idx, generator)`` gathers and preprocesses on
-    the device (the jitter from ``generator``) and runs the same hybrid
+    ``step(state, arrays, idx, generator, rows=None)`` gathers and
+    preprocesses on the device (the jitter from ``generator``, for rows
+    ``rows`` of a global batch under a mesh) and runs the same hybrid
     loss and update."""
     from wsiseg_tpu_torch.train.steps import make_hybrid_train_step
 
     base = make_hybrid_train_step(model, cfg, **step_kwargs)
 
-    def step(state, arrays, idx, generator=None):
+    def step(state, arrays, idx, generator=None, rows=None):
+        # rows only under a mesh: one device keeps gather_batch's
+        # five-argument call
+        kw = {} if rows is None else {"rows": rows}
         return base(state, gather_batch(arrays, idx, cfg, generator,
-                                        train=True))
+                                        train=True, **kw))
 
     return step
+
+
+def cache_rows(cfg: Config, mesh=None) -> Optional[Callable]:
+    """The rows of a b-row host batch this rank caches
+    (``parallel.mesh.batch_rows``, in microbatch order under
+    ``grad_accum``): ``fn(b)``, or None (every row) without a mesh."""
+    if mesh is None:
+        return None
+    from wsiseg_tpu_torch.parallel.mesh import batch_rows
+    return lambda b: batch_rows(mesh, b, microbatches=cfg.grad_accum)
+
+
+def cached_training(batches: Iterable[Dict[str, np.ndarray]], model,
+                    cfg: Config, device, mesh=None,
+                    max_bytes: Optional[int] = None, log=lambda s: None,
+                    **step_kwargs) -> Tuple[DeviceEpochCache, Callable,
+                                            Callable]:
+    """``train --device_cache`` wired for ``train.loop.Trainer``: the cache
+    of ``batches`` (host batches of this rank's rows, :func:`cache_rows`),
+    the trainer's ``step_fn(state, batch, generator)`` over it, and its
+    ``make_batches(rows=None)``, a fresh epoch of (B/N,) index batches each
+    call (B the global batch, N the mesh's ranks; the cache already holds
+    only this rank's rows, so ``rows`` is not read)."""
+    cache = DeviceEpochCache.build(batches, cfg, device, max_bytes=max_bytes,
+                                   log=log)
+    cstep = make_cached_hybrid_train_step(model, cfg, **step_kwargs)
+    n, jitter = 1, None
+    if mesh is not None:
+        from wsiseg_tpu_torch.parallel.mesh import batch_rows, mesh_size
+        n = mesh_size(mesh)
+        jitter = (cfg.batch_size, torch.as_tensor(
+            batch_rows(mesh, cfg.batch_size, microbatches=cfg.grad_accum),
+            device=device))
+    epochs = itertools.count()
+
+    def step(state, batch, generator=None):
+        return cstep(state, cache.arrays, batch["idx"], generator,
+                     rows=jitter)
+
+    def make_batches(rows=None):
+        ep = next(epochs)
+        return ({"idx": ix} for ix in cache.index_batches(
+            cfg.batch_size // n, seed=cfg.seed, epoch=ep))
+
+    return cache, step, make_batches
